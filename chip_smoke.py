@@ -12,10 +12,20 @@ Phases, each fatal on failure:
 3. the FSM kernel against its plain version on banked 16 × 2,048-word row
    files: all 16 builtins at 8 bits, addition/multiplication/division at 32
    bits and one fused chain trace;
+2b. the XNOR-popcount kernel against its plain version at VGG-16's
+   binarized FC6 and FC7 (batch 256), the applications example's layer and
+   a ragged edge (M 33, N 100, K 160);
 4. the main path on ``SimdramMachine(device="cuda", banks=16,
    mode="replay")`` at 16 × 65,536 lanes — the quickstart flow, every value
    checked against numpy, with the kernels' launch counters read around it;
-5. kernel times with CUDA events beside the plain versions' and the bound.
+4b. the applications path (``repro_torch.apps``) at 16 × 65,536 lanes on
+   the ``unrolled`` backend, as the reference example runs it, and on the
+   default ``kernel`` backend: brightness on a 1,024 × 1,024 image, a
+   BitWeaving scan over 4,194,304 codes (four passes), masked darken through
+   the user-defined ``gated_sub``, and the XNOR layer at FC6 and FC7, every
+   value checked against numpy, launch counters read around each pass;
+5. kernel times with CUDA events and the profiler beside the plain
+   versions', the bound and, for the XNOR kernel, ``torch._int_mm``.
 
 Every comparison is exact: the values are integers.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
@@ -37,8 +47,18 @@ LANES = 65_536                  # bitlines of one 8 KB DRAM row
 WORDS = LANES // 32             # plane words per bank
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64         # Hopper SM: 4 partitions × 16 INT32 lanes
+POPC_PER_SM = 16                # __popc a clock an SM, compute capability 9.0
+                                # (CUDA C++ Programming Guide, throughput table)
+INT8_TC_OPS_PER_S = 1979e12     # H100 SXM dense INT8 tensor cores (data sheet)
+# (label, M, N, K) of the XNOR layers: VGG-16's binarized fully-connected
+# layers at batch 256 (FC6: K = 512·7·7; FC7), the applications example's
+# layer, and a ragged edge
+XNOR_SHAPES = (("fc6", 256, 4096, 25088), ("fc7", 256, 4096, 4096),
+               ("example", 128, 128, 256), ("edge", 33, 100, 160))
+APP_IMAGE = (1024, 1024)        # 16 banks × 65,536 lanes: one full pass
+APP_CODES = 4 * BANKS * LANES   # four passes of the scan
 SEED = 0x51D0
-# kernel → largest |kernel − plain version| seen in phases 2 and 3
+# kernel → largest |kernel − plain version| seen in phases 2, 3 and 2b
 MAX_ABS_ERR: dict[str, int] = {}
 
 
@@ -144,6 +164,28 @@ def check_fsm(device, banks: int, words: int, full: bool = True) -> None:
         print(f"phase 3: FSM kernel == plain on {label} "
               f"(R={trace.n_rows}, N={trace.n_commands}, "
               f"{banks}x{words} words)")
+
+
+# -- phase 2b ----------------------------------------------------------------
+
+def packed_words(device, rows: int, kw: int, seed: int):
+    """Random sign-packed words (every bit pattern, bit 31 included)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-2**31, 2**31, (rows, kw), dtype=torch.int32,
+                         device=device, generator=g)
+
+
+def check_bitserial(device) -> None:
+    from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
+                                                      bitserial_matmul_plain)
+    for i, (label, m, n, k) in enumerate(XNOR_SHAPES):
+        a = packed_words(device, m, k // 32, SEED + 100 + 2 * i)
+        b = packed_words(device, n, k // 32, SEED + 101 + 2 * i)
+        _equal(bitserial_matmul(a, b, k), bitserial_matmul_plain(a, b, k),
+               f"bitserial_matmul {label}", "bitserial_matmul")
+        print(f"phase 2b: XNOR-popcount kernel == plain on {label} "
+              f"(M={m} N={n} K={k})")
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -256,6 +298,51 @@ def main_path(device, banks: int, lanes: int) -> dict:
             "makespan_ns": sched.ns}
 
 
+# -- phase 4b ----------------------------------------------------------------
+
+def apps_inputs() -> dict:
+    """The applications path's inputs and their numpy answers (made once,
+    outside the timed passes)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 4)
+    img = rng.integers(0, 256, APP_IMAGE)
+    codes = rng.integers(0, 256, APP_CODES)
+    layers = []
+    for label, m, n, k in XNOR_SHAPES[:2]:
+        x, w = ((rng.integers(0, 2, (r, k), dtype=np.int8) * 2 - 1)
+                .astype(np.float32) for r in (m, n))
+        # exact in float32: every partial sum is an integer below 2**24
+        layers.append((label, x, w, (x @ w.T).astype(np.int32)))
+    return {"img": img, "codes": codes, "layers": layers,
+            "bright": np.minimum(img + 64, 255),
+            "count": int(((codes >= 50) & (codes <= 180)).sum()),
+            "dark": np.where(img > 128, (img - 40) & 255, img)}
+
+
+def apps_path(device, backend: str | None, inp: dict) -> dict:
+    """The applications on a fresh 16-bank machine, every result checked
+    against numpy.  Returns the host wall time and the cache counters."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apps import make_apps
+    t0 = time.perf_counter()
+    apps = make_apps(device, banks=BANKS, lanes=LANES, backend=backend)
+    bright = apps.brightness(inp["img"], 64)
+    count = apps.bitweaving_scan(inp["codes"], 50, 180)
+    dark = apps.masked_darken(inp["img"], inp["img"] > 128, 40)
+    layers = [(label, apps.xnor_layer(x, w), want)
+              for label, x, w, want in inp["layers"]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check(np.array_equal(bright, inp["bright"]), "brightness")
+    _check(count == inp["count"], f"bitweaving scan {count} != {inp['count']}")
+    _check(np.array_equal(dark, inp["dark"]), "masked darken")
+    for label, got, want in layers:
+        _check(np.array_equal(got, want), f"xnor layer {label}")
+    return {"seconds": seconds, "cache": apps.machine.cache_stats()}
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def cuda_ms(fn, inputs: list, iters: int) -> float:
@@ -294,21 +381,22 @@ def profiled_ms(fn, args, kernel: str, iters: int = 20) -> float | None:
     return sum(times) / iters / 1e3 if times else None
 
 
-def device_breakdown(device) -> None:
-    """Run the main path once more under the profiler and print how much
-    of its wall time the device was busy, and with which kernels."""
+def device_breakdown(label: str, run) -> None:
+    """Run a path once more under the profiler (``run()`` returns its wall
+    seconds) and print how much of its wall time the device was busy, and
+    with which kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            seconds = main_path(device, BANKS, LANES)["seconds"]
+            seconds = run()
     except RuntimeError as exc:        # CUPTI tracing not permitted here
         print(f"profiler unavailable: {exc}")
         return
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
-    print(f"main path under the profiler: {seconds:.3f} s wall, device busy "
+    print(f"{label} under the profiler: {seconds:.3f} s wall, device busy "
           f"{busy:.3f} ms ({100 * busy / 1e3 / seconds:.2f}%)")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:9.3f} ms  x{count:<5} {key[:90]}")
@@ -329,6 +417,60 @@ def bound_ms(nbytes: float, ops: float, int_ops_per_s: float) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / int_ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unpack_signs(words, k: int):
+    """Sign-packed int32[rows, K/32] → int8[rows, K] of ±1."""
+    import torch
+    lane = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> lane) & 1
+    return (bits.reshape(words.shape[0], k) * 2 - 1).to(torch.int8)
+
+
+def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
+    """K3 at FC6 and FC7: events and profiler times beside the plain
+    version, ``torch._int_mm`` on the unpacked ±1 int8 operands (the
+    unpacking not timed) and the bounds."""
+    import torch
+
+    from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
+                                                      bitserial_matmul_plain)
+    rows_out = []
+    for i, (label, m, n, k) in enumerate(XNOR_SHAPES[:2]):
+        kw = k // 32
+        in_bytes = (m + n) * kw * 4
+        copies = max(2, min(24, int(64e6 // in_bytes) + 1))   # > L2 a round
+        inputs = [(packed_words(device, m, kw, SEED + 200 + 2 * c),
+                   packed_words(device, n, kw, SEED + 201 + 2 * c), k)
+                  for c in range(copies)]
+        a, b, _ = inputs[0]
+        ua, ub = unpack_signs(a, k), unpack_signs(b, k)
+        # the library call computes the same function, exactly (int32 sums)
+        _equal(torch._int_mm(ua, ub.t()), bitserial_matmul(a, b, k),
+               f"torch._int_mm vs bitserial_matmul {label}")
+        lib_inputs = [(ua, ub.t())]
+        t_popc = m * n * kw / popc_per_s * 1e3
+        t_int8 = 2 * m * n * k / INT8_TC_OPS_PER_S * 1e3
+        t_bytes = (in_bytes + m * n * 4) / HBM_BYTES_PER_S * 1e3
+        bound, by = (t_bytes, "bytes") if t_bytes >= t_int8 else \
+            (t_int8, "operations")
+        rows_out.append({
+            "name": f"bitserial_matmul/{label}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bitserial_matmul.cu",
+            "replaces": "src/repro/kernels/bitserial_matmul.py:58",
+            "launches": launches,
+            "max_abs_err": MAX_ABS_ERR["bitserial_matmul"],
+            "ms": cuda_ms(bitserial_matmul, inputs, iters=50),
+            "plain_ms": cuda_ms(bitserial_matmul_plain, inputs[:1], iters=1),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": cuda_ms(torch._int_mm, lib_inputs, iters=50),
+            "kernel_ms": profiled_ms(bitserial_matmul, inputs[0],
+                                     "xnor_popcount_kernel"),
+            "popc_bound_ms": t_popc, "int8_tc_bound_ms": t_int8,
+            "bytes_bound_ms": t_bytes,
+            "shape": f"M={m} N={n} K={k}"})
+        del inputs, lib_inputs, ua, ub
+    return rows_out
 
 
 def measure(device, launches: dict, int_ops_per_s: float) -> list:
@@ -403,6 +545,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.bitplane_transpose import from_planes, to_planes
+    from repro_torch.kernels.bitserial_matmul import bitserial_matmul
     from repro_torch.kernels.uprog_executor import uprog_execute
 
     card = _smi("name,power.limit")
@@ -411,27 +554,63 @@ def main() -> int:
     build_kernels()
     check_transpose(device, BANKS * LANES)
     check_fsm(device, BANKS, WORDS)
+    check_bitserial(device)
 
     wrappers = {"uprog_execute": uprog_execute, "bitplane_to_planes": to_planes,
-                "bitplane_from_planes": from_planes}
+                "bitplane_from_planes": from_planes,
+                "bitserial_matmul": bitserial_matmul}
+    main_kernels = ("uprog_execute", "bitplane_to_planes",
+                    "bitplane_from_planes")
     for w in wrappers.values():
         w.launches = 0
     path = main_path(device, BANKS, LANES)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = {name: wrappers[name].launches for name in main_kernels}
     print(f"phase 4: main path OK in {path['seconds']:.2f} s "
           f"(drain makespan {path['makespan_ns']:.1f} modeled ns); "
           f"launches {launches}")
     print(path["report"])
     idle = [name for name, n in launches.items() if n == 0]
     _check(not idle, f"kernels not launched on the main path: {idle}")
-    device_breakdown(device)
+    device_breakdown("main path",
+                     lambda: main_path(device, BANKS, LANES)["seconds"])
+
+    inputs = apps_inputs()
+    app_launches = {}
+    for backend in ("unrolled", None):
+        label = backend or "kernel"
+        for w in wrappers.values():
+            w.launches = 0
+        res = apps_path(device, backend, inputs)
+        counts = {name: w.launches for name, w in wrappers.items()}
+        print(f"phase 4b: applications path on the {label!r} backend OK in "
+              f"{res['seconds']:.2f} s; μProgram Memory {res['cache']}; "
+              f"launches {counts}")
+        need = [name for name in wrappers
+                if backend is None or name != "uprog_execute"]
+        idle = [name for name in need if counts[name] == 0]
+        _check(not idle, f"kernels not launched on the applications path "
+               f"({label} backend): {idle}")
+        if backend == "unrolled":
+            _check(counts["uprog_execute"] == 0,
+                   "the unrolled backend launched the FSM kernel")
+        app_launches[label] = counts
+    for backend in ("unrolled", None):
+        device_breakdown(f"applications path ({backend or 'kernel'} backend)",
+                         lambda b=backend: apps_path(device, b, inputs)[
+                             "seconds"])
+    del inputs
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_mhz = float(_smi("clocks.max.sm").split()[0])
     int_ops_per_s = sms * INT32_LANES_PER_SM * max_mhz * 1e6
+    popc_per_s = sms * POPC_PER_SM * max_mhz * 1e6
     print(f"INT32 peak: {sms} SMs x {INT32_LANES_PER_SM} lanes x "
-          f"{max_mhz:.0f} MHz = {int_ops_per_s / 1e12:.2f} Tops/s")
+          f"{max_mhz:.0f} MHz = {int_ops_per_s / 1e12:.2f} Tops/s; popcount "
+          f"peak {sms} x {POPC_PER_SM} x {max_mhz:.0f} MHz = "
+          f"{popc_per_s / 1e12:.3f} T/s")
     kernels = measure(device, launches, int_ops_per_s)
+    kernels += measure_bitserial(
+        device, app_launches["unrolled"]["bitserial_matmul"], popc_per_s)
     print(json.dumps({"kernels": kernels}))
     print(_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,10 @@ Registered backends:
   command stream driving a row file, in the hand-written CUDA kernel on a
   CUDA tensor (banks folded into one launch) and in its plain PyTorch
   version on a CPU tensor.  The default.
+* ``unrolled``  — :func:`repro_torch.core.unrolled.run_trace_unrolled`:
+  the trace walked in Python as eager bitwise torch over plane words (COPY
+  aliases, MAJ is bitwise majority), on whatever device the planes live
+  on; the bank axis rides along in every op.
 * ``reference`` — decodes the trace back to μOps and runs them on the
   faithful numpy :class:`~repro_torch.core.executor.Subarray` model: exact
   AAP/AP semantics, destructive TRAs, DCC ports.  The oracle.
@@ -880,6 +884,15 @@ def _kernel_execute(trace: LoweredTrace, operands: dict,
 _kernel_execute.banked = True
 
 
+def _unrolled_execute(trace: LoweredTrace, operands: dict,
+                      out_bits=None) -> dict:
+    from .unrolled import run_trace_unrolled
+    return run_trace_unrolled(trace, operands, out_bits=out_bits)
+
+
+_unrolled_execute.banked = True
+
+
 def _reference_execute(trace: LoweredTrace, operands: dict,
                        out_bits=None) -> dict:
     """Planes → horizontal numpy values → faithful Subarray run → planes.
@@ -917,4 +930,5 @@ def _reference_execute(trace: LoweredTrace, operands: dict,
 
 
 register_backend("kernel", _kernel_execute)
+register_backend("unrolled", _unrolled_execute)
 register_backend("reference", _reference_execute)

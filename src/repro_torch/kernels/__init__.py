@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the main path, each beside its plain
-PyTorch version: the control-unit FSM (:mod:`.uprog_executor`) and the
-transposition unit (:mod:`.bitplane_transpose`).  Sources live in
-``csrc/`` and are built with ``nvcc`` on first use (:mod:`._build`)."""
+"""Hand-written CUDA kernels, each beside its plain PyTorch version: the
+control-unit FSM (:mod:`.uprog_executor`), the transposition unit
+(:mod:`.bitplane_transpose`) and the XNOR-popcount matmul of the
+applications (:mod:`.bitserial_matmul`).  Sources live in ``csrc/`` and are
+built with ``nvcc`` on first use (:mod:`._build`)."""

@@ -14,10 +14,12 @@ import torch
 
 from ..core.trace import LoweredTrace
 from .bitplane_transpose import bitplane_transpose, from_planes, to_planes
+from .bitserial_matmul import bitserial_matmul, pack_signs
 from .uprog_executor import check_cmds, uprog_execute
 
-__all__ = ["bitplane_transpose", "from_planes", "run_trace_kernel",
-           "to_planes", "transpose_to_planes"]
+__all__ = ["bitplane_transpose", "bitserial_matmul", "from_planes",
+           "pack_signs", "run_trace_kernel", "to_planes",
+           "transpose_to_planes"]
 
 # (trace fingerprint, device) → device copy of the trace's checked commands;
 # traces are few (the μProgram Memory holds a handful), FIFO-bounded anyway

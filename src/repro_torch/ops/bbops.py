@@ -19,7 +19,8 @@ intermediate plane-resident, and stores results back horizontal in one pass.
 
 Execution dispatches through the backend registry
 (:mod:`repro_torch.core.backends`): ``kernel`` (the Fig.-7 control-unit
-FSM kernel, default), ``reference`` (the numpy ``Subarray`` oracle).
+FSM kernel, default), ``unrolled`` (eager bitwise torch over the planes),
+``reference`` (the numpy ``Subarray`` oracle).
 Select per call (``backend="reference"``), per scope
 (``with use_backend(...)``), or process-wide (``set_default_backend``).
 μPrograms are compiled once per (operation, element-width) and cached — the

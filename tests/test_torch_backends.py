@@ -2,9 +2,10 @@
 reference package.
 
 * Every builtin op at 4/8/16 bits (and a 32-bit subset), banked and
-  unbanked: the port's ``kernel`` backend (its plain FSM on the CPU) and its
-  ``reference`` backend give the same planes as ``repro``'s ``reference``
-  (numpy ``Subarray``) and ``unrolled`` backends.
+  unbanked: the port's ``kernel`` backend (its plain FSM on the CPU), its
+  ``unrolled`` backend and its ``reference`` backend give the same planes
+  as ``repro``'s ``reference`` (numpy ``Subarray``) and ``unrolled``
+  backends.
 * The compile path gives the same ``LoweredTrace.fingerprint`` for every
   op, width and ``optimize`` setting.
 * ``PerfStats.snapshot()`` of one timed chain is equal in analytic and
@@ -58,7 +59,7 @@ def _check_parity(op: str, n_bits: int, banked: bool) -> None:
     for name in want:
         np.testing.assert_array_equal(np.asarray(unrolled[name]),
                                       np.asarray(want[name]))
-    for backend in ("kernel", "reference"):
+    for backend in ("kernel", "unrolled", "reference"):
         got = TB.execute_program(prog, port_ops, backend=backend)
         assert set(got) == set(want)
         for name in want:
@@ -82,9 +83,11 @@ def test_backends_match_reference_32_bits(op, banked):
 
 
 def test_registry_surface():
-    assert set(TB.list_backends()) == {"kernel", "reference"}
+    assert set(TB.list_backends()) == {"kernel", "reference", "unrolled"}
     assert TB.default_backend() == "kernel"
     assert TB.get_backend("kernel").banked
+    assert TB.get_backend("unrolled").banked
+    assert not getattr(TB.get_backend("reference"), "banked", False)
     with TB.use_backend("reference"):
         assert TB.default_backend() == "reference"
     assert TB.default_backend() == "kernel"

@@ -36,7 +36,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(port_modules()) >= 19
+    assert len(port_modules()) >= 22
 
 
 def test_port_sources_import_no_jax_and_no_repro():
@@ -63,9 +63,13 @@ def test_every_sliced_reference_module_has_a_counterpart():
                 "simdram/layout.py", "simdram/machine.py", "ops/bbops.py",
                 "ops/__init__.py", "kernels/uprog_executor.py",
                 "kernels/bitplane_transpose.py", "kernels/ops.py",
-                "kernels/ref.py"):
+                "kernels/ref.py", "core/unrolled.py",
+                "kernels/bitserial_matmul.py"):
         assert (ref / rel).exists(), rel
         assert (PORT / rel).exists(), rel
+    # the applications example becomes a module of the port
+    assert (PORT.parents[1] / "examples" / "simdram_apps.py").exists()
+    assert (PORT / "apps.py").exists()
 
 
 def test_default_machine_runs_on_cuda_and_refuses_a_missing_card(monkeypatch):

@@ -36,7 +36,8 @@ PKGS = {
     "port": types.SimpleNamespace(
         ops=port_ops, layout=port_layout, timing=port_timing, graph=port_graph,
         uprogram=port_uprogram, arr=lambda x: torch.as_tensor(x, dtype=torch.int32),
-        machine_kw={"device": "cpu"}, backends=("reference", "kernel")),
+        machine_kw={"device": "cpu"},
+        backends=("reference", "kernel", "unrolled")),
 }
 
 
