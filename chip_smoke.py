@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SIMDRAM (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab-old OLD.cu]
 
 Phases, each fatal on failure:
 
 1. print the card (``nvidia-smi``) and build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (timed);
 2. the transposition kernels against their plain PyTorch versions, both
-   directions, n_bits 1/8/16/32, signed and unsigned, at 16 × 65,536 lanes;
+   directions, n_bits 1/3/8/16/31/32, signed and unsigned, at 16 × 65,536
+   lanes and at a group count that is not a multiple of 32;
 3. the FSM kernel against its plain version on banked 16 × 2,048-word row
    files: all 16 builtins at 8 bits, addition/multiplication/division at 32
    bits and one fused chain trace;
 2b. the XNOR-popcount kernel against its plain version at VGG-16's
-   binarized FC6 and FC7 (batch 256), the applications example's layer and
-   a ragged edge (M 33, N 100, K 160);
+   binarized FC6 and FC7 (batch 256), the applications example's layer, a
+   ragged edge (M 33, N 100, K 160), a K tail after a whole k-tile (M 17,
+   N 9, K 1,056) and one row (M 1, N 4,096, K 32); FC6 twice, bit-identical
+   (its K is split across a cluster of blocks);
 4. the main path on ``SimdramMachine(device="cuda", banks=16,
    mode="replay")`` at 16 × 65,536 lanes — the quickstart flow, every value
    checked against numpy, with the kernels' launch counters read around it;
@@ -25,7 +28,15 @@ Phases, each fatal on failure:
    the user-defined ``gated_sub``, and the XNOR layer at FC6 and FC7, every
    value checked against numpy, launch counters read around each pass;
 5. kernel times with CUDA events and the profiler beside the plain
-   versions', the bound and, for the XNOR kernel, ``torch._int_mm``.
+   versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
+   transposition kernels at 1, 8 and 32 planes.
+
+``--ab-old OLD.cu`` (optional) also builds an earlier version of
+``csrc/bitserial_matmul.cu`` (its C interface: ``bitserial_matmul_launch(a,
+b, out, m, n, kw, k_bits, device, stream)``), copies it to
+``chiprun_out/ab/`` and times it against the current kernel and
+``torch._int_mm`` in turns (old, new, library, library, new, old) at FC6
+and FC7.
 
 Every comparison is exact: the values are integers.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
@@ -54,7 +65,9 @@ INT8_TC_OPS_PER_S = 1979e12     # H100 SXM dense INT8 tensor cores (data sheet)
 # layers at batch 256 (FC6: K = 512·7·7; FC7), the applications example's
 # layer, and a ragged edge
 XNOR_SHAPES = (("fc6", 256, 4096, 25088), ("fc7", 256, 4096, 4096),
-               ("example", 128, 128, 256), ("edge", 33, 100, 160))
+               ("example", 128, 128, 256), ("edge", 33, 100, 160),
+               ("k_tail", 17, 9, 1056), ("one_row", 1, 4096, 32))
+TRANSPOSE_BITS = (1, 3, 8, 16, 31, 32)   # phase 2's plane counts
 APP_IMAGE = (1024, 1024)        # 16 banks × 65,536 lanes: one full pass
 APP_CODES = 4 * BANKS * LANES   # four passes of the scan
 SEED = 0x51D0
@@ -103,13 +116,20 @@ def build_kernels() -> float:
 
 def check_transpose(device, lanes: int) -> None:
     import torch
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for e in (lanes, 32 * 32_769):            # the second: ragged groups
+        values = torch.randint(-2**31, 2**31, (e,), dtype=torch.int32,
+                               device=device, generator=g)
+        check_transpose_values(values)
+    print(f"phase 2: transposition kernels == plain versions "
+          f"(n_bits {'/'.join(map(str, TRANSPOSE_BITS))}, signed/unsigned, "
+          f"{lanes} lanes and 32,769 groups)")
 
+
+def check_transpose_values(values) -> None:
     from repro_torch.kernels.bitplane_transpose import (
         from_planes, from_planes_plain, to_planes, to_planes_plain)
-    g = torch.Generator(device=device).manual_seed(SEED)
-    values = torch.randint(-2**31, 2**31, (lanes,), dtype=torch.int32,
-                           device=device, generator=g)
-    for n_bits in (1, 8, 16, 32):
+    for n_bits in TRANSPOSE_BITS:
         planes = to_planes(values, n_bits)
         _equal(planes, to_planes_plain(values, n_bits), f"to_planes/{n_bits}b",
                "bitplane_to_planes")
@@ -123,8 +143,6 @@ def check_transpose(device, lanes: int) -> None:
             want = (values << s) >> s if signed else \
                 (values & ((1 << n_bits) - 1) if n_bits < 32 else values)
             _equal(back, want, f"round trip/{n_bits}b signed={signed}")
-    print(f"phase 2: transposition kernels == plain versions "
-          f"(n_bits 1/8/16/32, signed/unsigned, {lanes} lanes)")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -177,13 +195,21 @@ def packed_words(device, rows: int, kw: int, seed: int):
 
 
 def check_bitserial(device) -> None:
+    import torch
+
     from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
                                                       bitserial_matmul_plain)
     for i, (label, m, n, k) in enumerate(XNOR_SHAPES):
         a = packed_words(device, m, k // 32, SEED + 100 + 2 * i)
         b = packed_words(device, n, k // 32, SEED + 101 + 2 * i)
-        _equal(bitserial_matmul(a, b, k), bitserial_matmul_plain(a, b, k),
+        # bk=1: the reference's TPU K block must divide Kw (33 at k_tail);
+        # the CUDA kernel tiles K its own way
+        got = bitserial_matmul(a, b, k, bk=1)
+        _equal(got, bitserial_matmul_plain(a, b, k),
                f"bitserial_matmul {label}", "bitserial_matmul")
+        if label == "fc6":
+            _check(torch.equal(bitserial_matmul(a, b, k, bk=1), got),
+                   "bitserial_matmul fc6: a second run differs")
         print(f"phase 2b: XNOR-popcount kernel == plain on {label} "
               f"(M={m} N={n} K={k})")
 
@@ -419,14 +445,6 @@ def bound_ms(nbytes: float, ops: float, int_ops_per_s: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def unpack_signs(words, k: int):
-    """Sign-packed int32[rows, K/32] → int8[rows, K] of ±1."""
-    import torch
-    lane = torch.arange(32, dtype=torch.int32, device=words.device)
-    bits = (words[:, :, None] >> lane) & 1
-    return (bits.reshape(words.shape[0], k) * 2 - 1).to(torch.int8)
-
-
 def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
     """K3 at FC6 and FC7: events and profiler times beside the plain
     version, ``torch._int_mm`` on the unpacked ±1 int8 operands (the
@@ -434,7 +452,8 @@ def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
     import torch
 
     from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
-                                                      bitserial_matmul_plain)
+                                                      bitserial_matmul_plain,
+                                                      unpack_signs)
     rows_out = []
     for i, (label, m, n, k) in enumerate(XNOR_SHAPES[:2]):
         kw = k // 32
@@ -444,7 +463,7 @@ def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
                    packed_words(device, n, kw, SEED + 201 + 2 * c), k)
                   for c in range(copies)]
         a, b, _ = inputs[0]
-        ua, ub = unpack_signs(a, k), unpack_signs(b, k)
+        ua, ub = unpack_signs(a), unpack_signs(b)
         # the library call computes the same function, exactly (int32 sums)
         _equal(torch._int_mm(ua, ub.t()), bitserial_matmul(a, b, k),
                f"torch._int_mm vs bitserial_matmul {label}")
@@ -465,7 +484,7 @@ def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
             "bound_ms": bound, "bound_by": by,
             "library_ms": cuda_ms(torch._int_mm, lib_inputs, iters=50),
             "kernel_ms": profiled_ms(bitserial_matmul, inputs[0],
-                                     "xnor_popcount_kernel"),
+                                     "xnor_wgmma_kernel"),
             "popc_bound_ms": t_popc, "int8_tc_bound_ms": t_int8,
             "bytes_bound_ms": t_bytes,
             "shape": f"M={m} N={n} K={k}"})
@@ -507,27 +526,98 @@ def measure(device, launches: dict, int_ops_per_s: float) -> list:
             "bound_by": by, "library_ms": None, "kernel_ms": kernel_ms,
             "shape": f"R={trace.n_rows} N={trace.n_commands} "
                      f"{BANKS}x{WORDS} words"})
-    n_bits, lanes = 8, BANKS * LANES
+    lanes = BANKS * LANES
     g = torch.Generator(device=device).manual_seed(SEED)
-    vals = [(torch.randint(-2**31, 2**31, (lanes,), dtype=torch.int32,
-                           device=device, generator=g), n_bits)
-            for _ in range(24)]                 # 24 × 4 MB > L2
-    planes = [(to_planes_plain(v, n_bits), True) for v, _ in vals]
-    nbytes = lanes * 4 + n_bits * lanes // 8
-    bound, by = bound_ms(nbytes, n_bits * lanes, int_ops_per_s)
-    for name, fn, plain, inputs in (
-            ("bitplane_to_planes", to_planes, to_planes_plain, vals),
-            ("bitplane_from_planes", from_planes, from_planes_plain, planes)):
-        rows_out.append({
-            "name": name, "route": "cuda", "source": k2_src,
-            "replaces": "src/repro/kernels/bitplane_transpose.py:66",
-            "launches": launches[name], "max_abs_err": MAX_ABS_ERR[name],
-            "ms": cuda_ms(fn, inputs, iters=200),
-            "plain_ms": cuda_ms(plain, inputs, iters=20),
-            "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "kernel_ms": profiled_ms(fn, inputs[0], name.split("_", 1)[1]),
-            "shape": f"{n_bits} planes x {lanes} lanes"})
+    words = [torch.randint(-2**31, 2**31, (lanes,), dtype=torch.int32,
+                           device=device, generator=g)
+             for _ in range(24)]                # 24 × 4 MB > L2
+    for n_bits in (8, 1, 32):    # 8: the main path's width; 1, 32: scaling
+        vals = [(v, n_bits) for v in words]
+        planes = [(to_planes_plain(v, n_bits), True) for v in words]
+        nbytes = lanes * 4 + n_bits * lanes // 8
+        bound, by = bound_ms(nbytes, n_bits * lanes, int_ops_per_s)
+        for name, fn, plain, inputs in (
+                ("bitplane_to_planes", to_planes, to_planes_plain, vals),
+                ("bitplane_from_planes", from_planes, from_planes_plain,
+                 planes)):
+            rows_out.append({
+                "name": name if n_bits == 8 else f"{name}/{n_bits}_planes",
+                "route": "cuda", "source": k2_src,
+                "replaces": "src/repro/kernels/bitplane_transpose.py:66",
+                "launches": launches[name], "max_abs_err": MAX_ABS_ERR[name],
+                "ms": cuda_ms(fn, inputs, iters=200),
+                "plain_ms": cuda_ms(plain, inputs, iters=20),
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "kernel_ms": profiled_ms(fn, inputs[0],
+                                         name.split("_", 1)[1]),
+                "shape": f"{n_bits} planes x {lanes} lanes"})
+        del vals, planes
     return rows_out
+
+
+def ab_bitserial(device, old_src: Path) -> list:
+    """An earlier K3 (``old_src``, built here) against the current one and
+    ``torch._int_mm`` in turns at FC6 and FC7, on the same inputs: old,
+    new, library, library, new, old.  The source and the times go to
+    ``chiprun_out/ab/``."""
+    import ctypes
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
+                                                      unpack_signs)
+    out_dir = ROOT / "chiprun_out" / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / old_src.name
+    if src.resolve() != old_src.resolve():
+        shutil.copyfile(old_src, src)
+    lib_path = out_dir / f"{old_src.stem}.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(lib_path), str(src)],
+                          capture_output=True, text=True)
+    _check(proc.returncode == 0, f"nvcc {src}:\n{proc.stdout}{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in line:
+            print(f"  ptxas (old): {line.strip()}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.bitserial_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + \
+        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.bitserial_matmul_launch.restype = ctypes.c_int
+
+    def old(a, b, k):
+        m, kw = a.shape
+        out = torch.empty((m, b.shape[0]), dtype=torch.int32, device=a.device)
+        err = lib.bitserial_matmul_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, b.shape[0], kw, k,
+            a.device.index, torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"old bitserial_matmul launch failed ({err})")
+        return out
+
+    rows = []
+    for i, (label, m, n, k) in enumerate(XNOR_SHAPES[:2]):
+        kw = k // 32
+        copies = max(2, min(24, int(64e6 // ((m + n) * kw * 4)) + 1))
+        inputs = [(packed_words(device, m, kw, SEED + 300 + 2 * c),
+                   packed_words(device, n, kw, SEED + 301 + 2 * c), k)
+                  for c in range(copies)]
+        a, b, _ = inputs[0]
+        _equal(old(a, b, k), bitserial_matmul(a, b, k), f"A/B {label}")
+        lib_inputs = [(unpack_signs(a), unpack_signs(b).t())]
+        runs = {"old": (old, inputs), "new": (bitserial_matmul, inputs),
+                "library": (torch._int_mm, lib_inputs)}
+        times: dict[str, list] = {who: [] for who in runs}
+        for who in ("old", "new", "library", "library", "new", "old"):
+            fn, args = runs[who]
+            times[who].append(cuda_ms(fn, args, iters=50))
+        rows.append({"shape": label, "m": m, "n": n, "k": k, **times})
+        print(f"A/B {label}: " + ", ".join(
+            f"{who} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+            for who, ts in times.items()))
+        del inputs, lib_inputs, runs
+    (out_dir / "ab.json").write_text(json.dumps(rows, indent=1))
+    return rows
 
 
 def main() -> int:
@@ -541,6 +631,14 @@ def main() -> int:
         return 2
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is missing beside this script",
+              file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    ab_old = None
+    if args[:1] == ["--ab-old"] and len(args) == 2:
+        ab_old = Path(args[1]).resolve()
+    elif args:
+        print("usage: python3 chip_smoke.py [--ab-old OLD.cu]",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -611,6 +709,8 @@ def main() -> int:
     kernels = measure(device, launches, int_ops_per_s)
     kernels += measure_bitserial(
         device, app_launches["unrolled"]["bitserial_matmul"], popc_per_s)
+    if ab_old is not None:
+        ab_bitserial(device, ab_old)
     print(json.dumps({"kernels": kernels}))
     print(_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -152,6 +152,19 @@ def test_transpose_kernels_match_plain_on_gpu():
         for signed in (False, True):
             assert torch.equal(from_planes(planes, signed),
                                from_planes_plain(planes, signed))
+    # from-planes loops n_bits times: every width, at a group count below
+    # one block (33) and one that is not a multiple of 32 (1,000)
+    for groups in (33, 1000):
+        planes32 = torch.from_numpy(random_words((32, groups))
+                                    .view(np.int32)).to(dev)
+        for n_bits in range(1, 33):
+            planes = planes32[:n_bits].contiguous()
+            for signed in (False, True):
+                n = from_planes.launches
+                got = from_planes(planes, signed)
+                assert from_planes.launches == n + 1
+                assert torch.equal(got, from_planes_plain(planes, signed)), \
+                    (groups, n_bits, signed)
 
 
 @pytest.mark.gpu
