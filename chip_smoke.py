@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of SIMDRAM (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--ab-old OLD.cu]
+    python3 chip_smoke.py [--ab-old [KERNEL=]OLD.cu ...]
 
 Phases, each fatal on failure:
 
@@ -9,10 +9,15 @@ Phases, each fatal on failure:
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (timed);
 2. the transposition kernels against their plain PyTorch versions, both
    directions, n_bits 1/3/8/16/31/32, signed and unsigned, at 16 × 65,536
-   lanes and at a group count that is not a multiple of 32;
+   lanes and at a group count that is not a multiple of 32; and every
+   n_bits 1–32 at 37 groups (below one block) and 300 (not a multiple of
+   one block's 128);
 3. the FSM kernel against its plain version on banked 16 × 2,048-word row
    files: all 16 builtins at 8 bits, addition/multiplication/division at 32
-   bits and one fused chain trace;
+   bits and one fused chain trace; and on seeded synthetic streams whose
+   ports alias (MAJ with a == b or a == -c, COPY onto its own source) at
+   R 3/32/235 on 3 × 97 words, N 600 (above one staged chunk of 256 and
+   not a multiple of it);
 2b. the XNOR-popcount kernel against its plain version at VGG-16's
    binarized FC6 and FC7 (batch 256), the applications example's layer, a
    ragged edge (M 33, N 100, K 160), a K tail after a whole k-tile (M 17,
@@ -29,14 +34,29 @@ Phases, each fatal on failure:
    value checked against numpy, launch counters read around each pass;
 5. kernel times with CUDA events and the profiler beside the plain
    versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
-   transposition kernels at 1, 8 and 32 planes.
+   FSM at multiplication/8b and division/32b; the transposition kernels at
+   1, 8 and 32 planes, with their inputs rotating past the L2 and with one
+   input (``kernel_warm_ms``), beside the profiler time of a PyTorch copy
+   of the same element vector (``copy_ms``, a yardstick only).
 
-``--ab-old OLD.cu`` (optional) also builds an earlier version of
-``csrc/bitserial_matmul.cu`` (its C interface: ``bitserial_matmul_launch(a,
-b, out, m, n, kw, k_bits, device, stream)``), copies it to
-``chiprun_out/ab/`` and times it against the current kernel and
-``torch._int_mm`` in turns (old, new, library, library, new, old) at FC6
-and FC7.
+``--ab-old [KERNEL=]OLD.cu`` (optional, repeatable) also builds an earlier
+version of ``csrc/KERNEL.cu`` with the same C interface, copies it to
+``chiprun_out/ab/``, checks it equal to the current kernel and times both
+in turns, on the same inputs, by CUDA events and by the profiler's kernel
+time; the times go to ``chiprun_out/ab/ab.json``.  KERNEL is
+
+- ``bitserial_matmul`` (the default when ``KERNEL=`` is left out; the C
+  interface before the kernel's ``wgmma`` design, ``bitserial_matmul_launch(a,
+  b, out, m, n, kw, k_bits, device, stream)``): old, new,
+  ``torch._int_mm``, ``torch._int_mm``, new, old at FC6 and FC7;
+- ``uprog_executor``: old, new, new, old at multiplication/8b and
+  division/32b on 16 × 2,048-word row files;
+- ``bitplane_transpose``: to planes, old, new, new, old at 1, 8 and 32
+  planes × 16 × 65,536 lanes.
+
+An earlier source comes from git, e.g.
+``git show 9a3d5b9:src/repro_torch/kernels/csrc/uprog_executor.cu``, into
+a git-ignored directory such as ``build/ab_old/``.
 
 Every comparison is exact: the values are integers.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
@@ -68,6 +88,11 @@ XNOR_SHAPES = (("fc6", 256, 4096, 25088), ("fc7", 256, 4096, 4096),
                ("example", 128, 128, 256), ("edge", 33, 100, 160),
                ("k_tail", 17, 9, 1056), ("one_row", 1, 4096, 32))
 TRANSPOSE_BITS = (1, 3, 8, 16, 31, 32)   # phase 2's plane counts
+SMALL_GROUPS = (37, 300)        # below one to-planes block; not a multiple
+# (R, N) of phase 3's synthetic streams: N above one staged chunk of 256
+# commands and not a multiple of it
+ALIASED_STREAMS = ((3, 600), (32, 600), (235, 600))
+FSM_TIMED = (("multiplication", 8), ("division", 32))
 APP_IMAGE = (1024, 1024)        # 16 banks × 65,536 lanes: one full pass
 APP_CODES = 4 * BANKS * LANES   # four passes of the scan
 SEED = 0x51D0
@@ -121,15 +146,20 @@ def check_transpose(device, lanes: int) -> None:
         values = torch.randint(-2**31, 2**31, (e,), dtype=torch.int32,
                                device=device, generator=g)
         check_transpose_values(values)
+    for groups in SMALL_GROUPS:
+        values = torch.randint(-2**31, 2**31, (32 * groups,),
+                               dtype=torch.int32, device=device, generator=g)
+        check_transpose_values(values, range(1, 33))
     print(f"phase 2: transposition kernels == plain versions "
           f"(n_bits {'/'.join(map(str, TRANSPOSE_BITS))}, signed/unsigned, "
-          f"{lanes} lanes and 32,769 groups)")
+          f"{lanes} lanes and 32,769 groups; n_bits 1-32 at "
+          f"{' and '.join(map(str, SMALL_GROUPS))} groups)")
 
 
-def check_transpose_values(values) -> None:
+def check_transpose_values(values, widths=TRANSPOSE_BITS) -> None:
     from repro_torch.kernels.bitplane_transpose import (
         from_planes, from_planes_plain, to_planes, to_planes_plain)
-    for n_bits in TRANSPOSE_BITS:
+    for n_bits in widths:
         planes = to_planes(values, n_bits)
         _equal(planes, to_planes_plain(values, n_bits), f"to_planes/{n_bits}b",
                "bitplane_to_planes")
@@ -181,7 +211,34 @@ def check_fsm(device, banks: int, words: int, full: bool = True) -> None:
                f"uprog_execute {label}", "uprog_execute")
         print(f"phase 3: FSM kernel == plain on {label} "
               f"(R={trace.n_rows}, N={trace.n_commands}, "
-              f"{banks}x{words} words)")
+              f"steps={len(trace.cmds)}, {banks}x{words} words)")
+    for n_rows, n_cmds in ALIASED_STREAMS:
+        cmds = torch.as_tensor(aliased_stream(n_rows, n_cmds, SEED + n_rows),
+                               device=device)
+        rows = torch.randint(-2**31, 2**31, (3, n_rows, 97),
+                             dtype=torch.int32, device=device,
+                             generator=torch.Generator(device=device)
+                             .manual_seed(SEED + n_rows))
+        _equal(uprog_execute(cmds, rows), uprog_execute_plain(cmds, rows),
+               f"uprog_execute aliased R={n_rows}", "uprog_execute")
+        print(f"phase 3: FSM kernel == plain on an aliased stream "
+              f"(R={n_rows}, steps={n_cmds}, 3x97 words)")
+
+
+def aliased_stream(n_rows: int, n_cmds: int, seed: int):
+    """A seeded int32[n_cmds, 4] stream whose ports alias: MAJ with a == b,
+    MAJ with a == -c, COPY onto its own source (plain or complemented),
+    beside MAJ and COPY on independent random ports."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a, b, c = (rng.integers(1, n_rows + 1, n_cmds)
+               * rng.choice((-1, 1), n_cmds) for _ in range(3))
+    kind = rng.integers(0, 5, n_cmds)
+    op = np.isin(kind, (0, 1, 3)).astype(np.int64)
+    b = np.where(kind == 0, a, np.where(kind == 2, a * rng.choice((-1, 1),
+                                                                 n_cmds), b))
+    c = np.where(kind == 1, -a, np.where(op == 0, b, c))
+    return np.stack([op, a, b, c], axis=1).astype(np.int32)
 
 
 # -- phase 2b ----------------------------------------------------------------
@@ -389,15 +446,17 @@ def cuda_ms(fn, inputs: list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(fn, args, kernel: str, iters: int = 20) -> float | None:
-    """Mean device time of the kernel named ``kernel`` per the profiler
-    (None if the trace shows no such kernel)."""
+def profiled_ms(fn, inputs: list, kernel: str, iters: int = 20
+                ) -> float | None:
+    """Mean device time of the kernel named ``kernel`` per the profiler over
+    ``iters`` calls ``fn(*inputs[i % len])`` (None if the trace shows no
+    such kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn(*args)
+            for i in range(iters):
+                fn(*inputs[i % len(inputs)])
             torch.cuda.synchronize()
     except RuntimeError as exc:        # CUPTI tracing not permitted here
         print(f"profiler unavailable: {exc}")
@@ -405,6 +464,24 @@ def profiled_ms(fn, args, kernel: str, iters: int = 20) -> float | None:
     times = [e.device_time_total for e in prof.key_averages()
              if kernel in e.key]
     return sum(times) / iters / 1e3 if times else None
+
+
+def copy_ms(inputs: list, iters: int = 20) -> float | None:
+    """Mean device time per the profiler of ``x.clone()`` over the element
+    vectors ``inputs`` (each read once, written once): what a plain copy of
+    a transposition call's input costs on this card, as a yardstick."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                inputs[i % len(inputs)].clone()
+            torch.cuda.synchronize()
+    except RuntimeError as exc:        # CUPTI tracing not permitted here
+        print(f"profiler unavailable: {exc}")
+        return None
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / iters / 1e3 if total else None
 
 
 def device_breakdown(label: str, run) -> None:
@@ -483,7 +560,7 @@ def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
             "plain_ms": cuda_ms(bitserial_matmul_plain, inputs[:1], iters=1),
             "bound_ms": bound, "bound_by": by,
             "library_ms": cuda_ms(torch._int_mm, lib_inputs, iters=50),
-            "kernel_ms": profiled_ms(bitserial_matmul, inputs[0],
+            "kernel_ms": profiled_ms(bitserial_matmul, inputs[:1],
                                      "xnor_wgmma_kernel"),
             "popc_bound_ms": t_popc, "int8_tc_bound_ms": t_int8,
             "bytes_bound_ms": t_bytes,
@@ -492,10 +569,30 @@ def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
     return rows_out
 
 
-def measure(device, launches: dict, int_ops_per_s: float) -> list:
+def fsm_inputs(device, op: str, n_bits: int) -> tuple:
+    """The trace of ``op`` at ``n_bits`` and ``uprog_execute`` argument
+    tuples on 16 × 2,048-word row files (copies, so the files together
+    exceed the 50 MB L2 where they can)."""
     import torch
 
     from repro_torch.core.trace import compile_trace
+    trace = compile_trace(op, n_bits)[1]
+    cmds = torch.as_tensor(trace.cmds, dtype=torch.int32, device=device)
+    file_bytes = trace.n_rows * BANKS * WORDS * 4
+    copies = max(2, min(8, int(200e6 // file_bytes)))
+    return trace, [(cmds, random_rows(trace, BANKS, WORDS, device, SEED + i),
+                    False) for i in range(copies)]
+
+
+def element_words(device) -> list:
+    """24 random int32[16 × 65,536] element vectors (24 × 4 MB > L2)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(SEED)
+    return [torch.randint(-2**31, 2**31, (BANKS * LANES,), dtype=torch.int32,
+                          device=device, generator=g) for _ in range(24)]
+
+
+def measure(device, launches: dict, int_ops_per_s: float) -> list:
     from repro_torch.kernels.bitplane_transpose import (
         from_planes, from_planes_plain, to_planes, to_planes_plain)
     from repro_torch.kernels.uprog_executor import (uprog_execute,
@@ -503,16 +600,12 @@ def measure(device, launches: dict, int_ops_per_s: float) -> list:
     fsm_src = "src/repro_torch/kernels/csrc/uprog_executor.cu"
     k2_src = "src/repro_torch/kernels/csrc/bitplane_transpose.cu"
     rows_out = []
-    for op, n_bits in (("multiplication", 8), ("division", 32)):
-        trace = compile_trace(op, n_bits)[1]
-        cmds = torch.as_tensor(trace.cmds, dtype=torch.int32, device=device)
-        file_bytes = trace.n_rows * BANKS * WORDS * 4
-        copies = max(2, min(8, int(200e6 // file_bytes)))
-        inputs = [(cmds, random_rows(trace, BANKS, WORDS, device, SEED + i),
-                   False) for i in range(copies)]
+    for op, n_bits in FSM_TIMED:
+        trace, inputs = fsm_inputs(device, op, n_bits)
         ms = cuda_ms(uprog_execute, inputs, iters=50)
         plain_ms = cuda_ms(uprog_execute_plain, [inputs[0][:2]], iters=1)
-        kernel_ms = profiled_ms(uprog_execute, inputs[0], "uprog_execute")
+        kernel_ms = profiled_ms(uprog_execute, inputs, "uprog_execute")
+        file_bytes = trace.n_rows * BANKS * WORDS * 4
         nbytes = 2 * file_bytes + trace.cmds.nbytes
         ops = fsm_ops_per_word(trace.cmds) * BANKS * WORDS
         bound, by = bound_ms(nbytes, ops, int_ops_per_s)
@@ -525,12 +618,10 @@ def measure(device, launches: dict, int_ops_per_s: float) -> list:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": None, "kernel_ms": kernel_ms,
             "shape": f"R={trace.n_rows} N={trace.n_commands} "
-                     f"{BANKS}x{WORDS} words"})
+                     f"steps={len(trace.cmds)} {BANKS}x{WORDS} words"})
     lanes = BANKS * LANES
-    g = torch.Generator(device=device).manual_seed(SEED)
-    words = [torch.randint(-2**31, 2**31, (lanes,), dtype=torch.int32,
-                           device=device, generator=g)
-             for _ in range(24)]                # 24 × 4 MB > L2
+    words = element_words(device)
+    copy_yardstick = copy_ms(words)
     for n_bits in (8, 1, 32):    # 8: the main path's width; 1, 32: scaling
         vals = [(v, n_bits) for v in words]
         planes = [(to_planes_plain(v, n_bits), True) for v in words]
@@ -548,26 +639,23 @@ def measure(device, launches: dict, int_ops_per_s: float) -> list:
                 "ms": cuda_ms(fn, inputs, iters=200),
                 "plain_ms": cuda_ms(plain, inputs, iters=20),
                 "bound_ms": bound, "bound_by": by, "library_ms": None,
-                "kernel_ms": profiled_ms(fn, inputs[0],
-                                         name.split("_", 1)[1]),
+                "kernel_ms": profiled_ms(fn, inputs, name.split("_", 1)[1]),
+                # one input again and again: its reads hit the L2
+                "kernel_warm_ms": profiled_ms(fn, inputs[:1],
+                                              name.split("_", 1)[1]),
+                "copy_ms": copy_yardstick,
                 "shape": f"{n_bits} planes x {lanes} lanes"})
         del vals, planes
     return rows_out
 
 
-def ab_bitserial(device, old_src: Path) -> list:
-    """An earlier K3 (``old_src``, built here) against the current one and
-    ``torch._int_mm`` in turns at FC6 and FC7, on the same inputs: old,
-    new, library, library, new, old.  The source and the times go to
-    ``chiprun_out/ab/``."""
+def build_old(old_src: Path):
+    """Build an earlier kernel source into ``chiprun_out/ab/`` (the source
+    is copied there too) and load it."""
     import ctypes
     import shutil
 
-    import torch
-
     from repro_torch.kernels import _build
-    from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
-                                                      unpack_signs)
     out_dir = ROOT / "chiprun_out" / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     src = out_dir / old_src.name
@@ -579,9 +667,42 @@ def ab_bitserial(device, old_src: Path) -> list:
                           capture_output=True, text=True)
     _check(proc.returncode == 0, f"nvcc {src}:\n{proc.stdout}{proc.stderr}")
     for line in (proc.stdout + proc.stderr).splitlines():
-        if "registers" in line:
-            print(f"  ptxas (old): {line.strip()}")
-    lib = ctypes.CDLL(str(lib_path))
+        if "registers" in line or "smem" in line:
+            print(f"  ptxas (old {old_src.name}): {line.strip()}")
+    return ctypes.CDLL(str(lib_path))
+
+
+def in_turns(label: str, runs: dict, order: tuple, kernel: str | None,
+             iters: int) -> dict:
+    """Time each of ``runs`` (who → (fn, inputs)) in ``order`` by CUDA
+    events and, when ``kernel`` is named, by the profiler's kernel time."""
+    times: dict = {}
+    for who in order:
+        fn, inputs = runs[who]
+        t = times.setdefault(who, {"events_ms": [], "kernel_ms": []})
+        t["events_ms"].append(cuda_ms(fn, inputs, iters=iters))
+        if kernel is not None:
+            t["kernel_ms"].append(profiled_ms(fn, inputs, kernel))
+    print(f"A/B {label}: " + "; ".join(
+        f"{who} " + ", ".join(
+            f"{key[:-3]} " + " / ".join(f"{v:.5f}" if v is not None else "-"
+                                        for v in vals) + " ms"
+            for key, vals in t.items() if vals)
+        for who, t in times.items()))
+    return times
+
+
+def ab_bitserial(device, lib) -> list:
+    """An earlier K3 against the current one and ``torch._int_mm`` in turns
+    at FC6 and FC7, on the same inputs: old, new, library, library, new,
+    old (its C interface: ``bitserial_matmul_launch(a, b, out, m, n, kw,
+    k_bits, device, stream)``)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
+                                                      unpack_signs)
     lib.bitserial_matmul_launch.argtypes = [ctypes.c_void_p] * 3 + \
         [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.bitserial_matmul_launch.restype = ctypes.c_int
@@ -607,17 +728,108 @@ def ab_bitserial(device, old_src: Path) -> list:
         lib_inputs = [(unpack_signs(a), unpack_signs(b).t())]
         runs = {"old": (old, inputs), "new": (bitserial_matmul, inputs),
                 "library": (torch._int_mm, lib_inputs)}
-        times: dict[str, list] = {who: [] for who in runs}
-        for who in ("old", "new", "library", "library", "new", "old"):
-            fn, args = runs[who]
-            times[who].append(cuda_ms(fn, args, iters=50))
-        rows.append({"shape": label, "m": m, "n": n, "k": k, **times})
-        print(f"A/B {label}: " + ", ".join(
-            f"{who} {' / '.join(f'{t:.4f}' for t in ts)} ms"
-            for who, ts in times.items()))
+        times = in_turns(label, runs, ("old", "new", "library", "library",
+                                       "new", "old"), None, iters=50)
+        rows.append({"shape": label, "m": m, "n": n, "k": k,
+                     **{who: t["events_ms"] for who, t in times.items()}})
         del inputs, lib_inputs, runs
-    (out_dir / "ab.json").write_text(json.dumps(rows, indent=1))
     return rows
+
+
+def ab_uprog(device, lib) -> list:
+    """An earlier K1 against the current one in turns (old, new, new, old)
+    at multiplication/8b and division/32b, on the same row files."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.uprog_executor import uprog_execute
+    lib.uprog_execute_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.uprog_execute_launch.restype = ctypes.c_int
+
+    def old(cmds, rows, check=False):
+        out = torch.empty_like(rows)
+        n_rows, words = rows.shape[-2], rows.shape[-1]
+        err = lib.uprog_execute_launch(
+            cmds.data_ptr(), cmds.shape[0], rows.data_ptr(), out.data_ptr(),
+            n_rows, words, rows.numel() // n_rows, rows.device.index,
+            torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"old uprog_execute launch failed ({err})")
+        return out
+
+    out = []
+    for op, n_bits in FSM_TIMED:
+        trace, inputs = fsm_inputs(device, op, n_bits)
+        cmds, rows, _ = inputs[0]
+        _equal(old(cmds, rows), uprog_execute(cmds, rows), f"A/B {op}")
+        label = f"{op}/{n_bits}b"
+        times = in_turns(label, {"old": (old, inputs),
+                                 "new": (uprog_execute, inputs)},
+                         ("old", "new", "new", "old"), "uprog_execute",
+                         iters=20)
+        out.append({"shape": f"{label} R={trace.n_rows} "
+                             f"steps={len(trace.cmds)}", **times})
+        del inputs
+    return out
+
+
+def ab_to_planes(device, lib) -> list:
+    """An earlier to-planes kernel against the current one in turns (old,
+    new, new, old) at 1, 8 and 32 planes × 16 × 65,536 lanes."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.bitplane_transpose import to_planes
+    lib.bitplane_to_planes_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.bitplane_to_planes_launch.restype = ctypes.c_int
+
+    def old(values, n_bits):
+        out = torch.empty((n_bits, values.numel() // 32), dtype=torch.int32,
+                          device=values.device)
+        err = lib.bitplane_to_planes_launch(
+            values.data_ptr(), out.data_ptr(), out.shape[1], n_bits,
+            values.device.index, torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"old to_planes launch failed ({err})")
+        return out
+
+    words = element_words(device)
+    out = []
+    for n_bits in (1, 8, 32):
+        inputs = [(v, n_bits) for v in words]
+        _equal(old(*inputs[0]), to_planes(*inputs[0]), f"A/B {n_bits} planes")
+        times = in_turns(f"to_planes/{n_bits}_planes",
+                         {"old": (old, inputs), "new": (to_planes, inputs)},
+                         ("old", "new", "new", "old"), "to_planes",
+                         iters=200)
+        out.append({"shape": f"{n_bits} planes x {BANKS * LANES} lanes",
+                    **times})
+    return out
+
+
+AB_RUNS = {"bitserial_matmul": ab_bitserial, "uprog_executor": ab_uprog,
+           "bitplane_transpose": ab_to_planes}
+
+
+def parse_args(args: list) -> dict | None:
+    """``--ab-old [KERNEL=]OLD.cu`` pairs → {KERNEL: OLD.cu path}, or None
+    on a bad command line."""
+    ab_old = {}
+    while args:
+        if args[0] != "--ab-old" or len(args) < 2:
+            return None
+        kernel, _, src = args[1].rpartition("=")
+        kernel = kernel or "bitserial_matmul"
+        if kernel not in AB_RUNS:
+            return None
+        ab_old[kernel] = Path(src).resolve()
+        args = args[2:]
+    return ab_old
 
 
 def main() -> int:
@@ -633,13 +845,10 @@ def main() -> int:
         print("chip_smoke: src/repro_torch is missing beside this script",
               file=sys.stderr)
         return 2
-    args = sys.argv[1:]
-    ab_old = None
-    if args[:1] == ["--ab-old"] and len(args) == 2:
-        ab_old = Path(args[1]).resolve()
-    elif args:
-        print("usage: python3 chip_smoke.py [--ab-old OLD.cu]",
-              file=sys.stderr)
+    ab_old = parse_args(sys.argv[1:])
+    if ab_old is None:
+        print("usage: python3 chip_smoke.py [--ab-old [KERNEL=]OLD.cu ...] "
+              f"(KERNEL one of {', '.join(AB_RUNS)})", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.bitplane_transpose import from_planes, to_planes
@@ -709,8 +918,11 @@ def main() -> int:
     kernels = measure(device, launches, int_ops_per_s)
     kernels += measure_bitserial(
         device, app_launches["unrolled"]["bitserial_matmul"], popc_per_s)
-    if ab_old is not None:
-        ab_bitserial(device, ab_old)
+    if ab_old:
+        ab = {kernel: AB_RUNS[kernel](device, build_old(src))
+              for kernel, src in ab_old.items()}
+        (ROOT / "chiprun_out" / "ab" / "ab.json").write_text(
+            json.dumps(ab, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(_smi("name,power.limit"))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,9 @@ int32[n_bits, E/32] LSB-first bit-planes: bit ``e`` of plane word
 ``planes[i, g]`` is bit ``i`` of element ``32·g + e``.  ``from_planes`` is
 the inverse, sign-extending from bit ``n_bits − 1`` when asked.  On a CUDA
 tensor each launches its hand-written kernel in
-``csrc/bitplane_transpose.cu`` (one warp per 32-element group, one
-``__ballot_sync`` per bit); on a CPU tensor each runs its plain PyTorch
-version.  :func:`bitplane_transpose` is the 32×32 transpose with the
+``csrc/bitplane_transpose.cu`` (one warp per 32-element group: a 5-stage
+shuffle network to planes, n_bits steps a lane from planes); on a CPU
+tensor each runs its plain PyTorch version.  :func:`bitplane_transpose` is the 32×32 transpose with the
 signature of ``repro.kernels.bitplane_transpose``.
 """
 from __future__ import annotations

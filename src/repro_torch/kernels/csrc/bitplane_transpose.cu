@@ -5,56 +5,95 @@
 // (pallas_call at bitplane_transpose.py:66): a 32x32 bit-matrix transpose,
 // LSB first.  Element e of a 32-element group is lane e of a warp; bit e of
 // plane word i is bit i of element e.
-//   to:   lane e holds element e; __ballot_sync of bit i gives plane word i
-//         (n_bits ballots a warp).
+//   to:   lane e holds element e; a 5-stage shuffle network transposes the
+//         warp's 32x32 bit matrix, after which lane i holds plane word i.
 //   from: lane e builds element e from its group's n_bits plane words,
 //         v |= ((plane_i >> e) & 1) << i, reading each word from shared
 //         memory as a broadcast to the whole warp (n_bits steps a lane).
-// Both directions loop n_bits times, not 32.
 // The TPU version needs G % 128 == 0 and runs a 5-stage masked-shift network
 // on (32,128) blocks; here a group is one warp and only the element count
 // has to be a multiple of 32.
 //
 // What bounds it on this card: device-memory bytes.  Each element word is
 // read or written once (4 B) and each plane word once (n_bits/8 B per
-// element), against n_bits steps per lane.  The design keeps both global
-// sides coalesced.  To planes: a block of 32 warps handles 32 groups and
-// turns its n_bits x 32 plane words around in shared memory ([32][33],
-// conflict free), so a warp reads 32 consecutive element words and writes
-// 32 consecutive words of one plane (128 B each).  From planes: a block
-// stages n_bits x 128 plane words (n_bits / 2 loads a thread in flight,
-// so the reads are not bound by latency), and each warp writes 32
-// consecutive element words a group.
+// element).  A call moves 4-8 MB, a few times the bytes the card has in
+// flight at once, so the design's first concern is keeping many reads in
+// flight from the start, and then keeping both global sides coalesced.
+// To planes: a block of 256 threads takes 64 groups; each warp loads the
+// element words of its 8 groups (8 independent 4-byte loads a lane, 128 B a
+// warp instruction) before it transposes the first, and the 512 blocks of
+// 16 x 65,536 lanes are all resident in one wave (about four an SM).  Each
+// stage of the network is a shuffle, a rotate and one three-input logic op
+// (no cross-lane select), the lanes that hold one of the n_bits planes
+// write it to a shared tile ([32][65], conflict free), and the block writes
+// n_bits rows of 64 consecutive plane words (256 B each).  Staging the
+// element words with cp.async, 16-byte loads, or blocks of 128 or 256
+// groups measured slower on the H100.
+// From planes: a block stages n_bits x 128 plane words (n_bits / 2
+// loads a thread in flight, so the reads are not bound by latency), and
+// each warp writes 32 consecutive element words a group.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kGroups = 32;             // groups (warps) per block, to
+constexpr int kToThreads = 256;         // threads per block, to
+constexpr int kToGroups = 64;           // groups per block, to
 constexpr int kFromThreads = 256;       // threads per block, from
 constexpr int kFromGroups = 128;        // groups per block, from
 constexpr unsigned kFull = 0xffffffffu;
 
-// values int32[groups*32] -> planes int32[n_bits, groups]
-__global__ void __launch_bounds__(kGroups * 32)
+// One warp's 32x32 bit matrix, row e in lane e, transposed in place.  Stage
+// j swaps bit j of the row index with bit j of the column index: a lane
+// without bit j (upper) keeps its columns without bit j and takes the
+// partner's (lane + j) columns without bit j into its columns with bit j,
+// moved up by j; a lane with bit j (lower) does the opposite, moved down by
+// j.  A rotate by j (upper) or 32 - j (lower) does either move, and `keep`
+// selects the columns the lane replaces.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+#pragma unroll
+  for (int j = 16; j >= 1; j >>= 1) {
+    // columns without bit j: 0x0000ffff, 0x00ff00ff, 0x0f0f0f0f, ...
+    const uint32_t low = kFull / ((1u << j) + 1u);
+    const bool upper = (lane & j) == 0;
+    const uint32_t keep = upper ? ~low : low;
+    const uint32_t p = __shfl_xor_sync(kFull, x, j);
+    const uint32_t moved = __funnelshift_l(p, p, upper ? j : 32 - j);
+    x ^= (x ^ moved) & keep;
+  }
+  return x;
+}
+
+// values int32[groups*32] -> planes int32[n_bits, groups].  Warp w of a
+// block takes the block's groups 8w .. 8w + 7.
+__global__ void __launch_bounds__(kToThreads)
 to_planes_kernel(const int32_t* __restrict__ values,
                  int32_t* __restrict__ planes, int64_t groups, int n_bits) {
-  __shared__ int32_t tile[32][33];
+  constexpr int kPerWarp = kToGroups / (kToThreads / 32);
+  __shared__ uint32_t tile[32][kToGroups + 1];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kGroups;
-  const int64_t g = g0 + warp;
-  const int32_t x = g < groups ? values[g * 32 + lane] : 0;
-  unsigned mine = 0;
-  for (int i = 0; i < n_bits; ++i) {
-    const unsigned word = __ballot_sync(kFull, (x >> i) & 1);
-    if (lane == i) mine = word;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * kToGroups;
+  uint32_t x[kPerWarp];
+#pragma unroll
+  for (int q = 0; q < kPerWarp; ++q) {
+    const int64_t g = g0 + warp * kPerWarp + q;
+    x[q] = g < groups ? static_cast<uint32_t>(__ldg(values + g * 32 + lane))
+                      : 0u;
   }
-  tile[lane][warp] = static_cast<int32_t>(mine);  // plane `lane` of group g
+#pragma unroll
+  for (int q = 0; q < kPerWarp; ++q) {
+    const uint32_t word = transpose32(x[q], lane);
+    if (lane < n_bits) tile[lane][warp * kPerWarp + q] = word;
+  }
   __syncthreads();
-  const int64_t gg = g0 + lane;
-  if (warp < n_bits && gg < groups) {
-    planes[static_cast<int64_t>(warp) * groups + gg] = tile[warp][lane];
+  for (int idx = threadIdx.x; idx < n_bits * kToGroups; idx += kToThreads) {
+    const int i = idx / kToGroups;
+    const int j = idx % kToGroups;
+    if (g0 + j < groups) {
+      planes[static_cast<int64_t>(i) * groups + g0 + j] =
+          static_cast<int32_t>(tile[i][j]);
+    }
   }
 }
 
@@ -113,7 +152,7 @@ int bitplane_to_planes_launch(const void* values, void* planes,
                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  to_planes_kernel<<<blocks_for(groups, kGroups), kGroups * 32, 0,
+  to_planes_kernel<<<blocks_for(groups, kToGroups), kToThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(values), static_cast<int32_t*>(planes),
       groups, n_bits);

@@ -42,6 +42,49 @@ def operand_planes(trace, n_bits: int, words: int, banks: int | None = None):
     return {name: random_words((*lead, n_bits, words)) for name in names}
 
 
+def aliased_stream(rng, n_rows: int, n_cmds: int) -> np.ndarray:
+    """A seeded int32[n_cmds, 4] command stream whose ports alias: MAJ with
+    a == b, MAJ with a == -c, COPY onto its own source (plain or
+    complemented), beside MAJ and COPY on independent random ports."""
+    a, b, c = (rng.integers(1, n_rows + 1, n_cmds)
+               * rng.choice((-1, 1), n_cmds) for _ in range(3))
+    kind = np.arange(n_cmds) % 5
+    op = np.isin(kind, (0, 1, 3)).astype(np.int64)
+    b = np.where(kind == 0, a, np.where(kind == 2, a * rng.choice((-1, 1),
+                                                                 n_cmds), b))
+    c = np.where(kind == 1, -a, np.where(op == 0, b, c))
+    return np.stack([op, a, b, c], axis=1).astype(np.int32)
+
+
+def run_decoded(cmds: np.ndarray, rows: np.ndarray, order=(0, 1, 2),
+                unroll: int = 16) -> np.ndarray:
+    """The CUDA FSM on numpy, as ``csrc/uprog_executor.cu`` decodes it: a
+    MAJ's ports (a, b, c), read and written in ``order``; a COPY a ← b as
+    ports (b, b, a) that reads port 0 and writes port 2; each port a byte
+    offset (|i| − 1) · 128 into a 32-column file, bit-inverted for a
+    complement port (mask = port >> 31, offset = port ^ mask); the stream
+    padded to whole unrolled groups with COPY 1 ← 1."""
+    def encode(i):
+        off = (np.abs(i) - 1) * 128
+        return np.where(i < 0, ~off, off).astype(np.int32)
+
+    pad = np.tile(np.array([[0, 1, 1, 1]], np.int32),
+                  (-len(cmds) % unroll, 1))
+    file = rows.copy()
+    for op, a, b, c in np.concatenate([cmds, pad]):
+        e = encode(np.array((a, b, c) if op == 1 else (b, b, a)))
+        mask = e >> 31
+        row = (e ^ mask) // 128
+        if op == 1:
+            v = [file[r] ^ m for r, m in zip(row, mask)]
+            maj = (v[0] & v[1]) | (v[0] & v[2]) | (v[1] & v[2])
+            for k in order:
+                file[row[k]] = maj ^ mask[k]
+        else:
+            file[row[2]] = file[row[0]] ^ mask[0] ^ mask[2]
+    return file
+
+
 def cuda_or_skip() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
@@ -86,6 +129,68 @@ def test_fsm_plain_matches_uprog_maj_ref(op):
     np.testing.assert_array_equal(u32(got), want)
     np.testing.assert_array_equal(
         u32(uprog_maj_ref(torch.from_numpy(rows.view(np.int32)), cmds)), want)
+
+
+@pytest.mark.parametrize("n_rows,n_cmds,seed",
+                         [(3, 48, 0), (8, 97, 1), (32, 200, 2)])
+def test_fsm_plain_matches_pallas_on_aliased_streams(n_rows, n_cmds, seed):
+    """On streams whose ports alias (a == b, a == -c, COPY onto its own
+    source), the plain FSM ≡ the reference's Pallas FSM (interpret mode)
+    ≡ ``repro.kernels.ref.uprog_maj_ref``: the MAJ writes a, then b, then
+    c, and the last write wins."""
+    import jax.numpy as jnp
+
+    from repro.kernels.ref import uprog_maj_ref as jax_uprog_maj_ref
+    from repro.kernels.uprog_executor import uprog_execute as pallas_execute
+    rng = np.random.default_rng(seed)
+    cmds = aliased_stream(rng, n_rows, n_cmds)
+    op, a, b, c = cmds.T
+    assert ((op == 1) & (a == b)).any() and ((op == 1) & (a == -c)).any()
+    assert ((op == 0) & (a == b)).any() and ((op == 0) & (a == -b)).any()
+    rows = random_words((n_rows, 128))
+    got = u32(uprog_execute_plain(torch.from_numpy(cmds),
+                                  torch.from_numpy(rows.view(np.int32))))
+    kernel = np.asarray(pallas_execute(jnp.asarray(cmds), jnp.asarray(rows),
+                                       interpret=True))
+    np.testing.assert_array_equal(got, kernel)
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_uprog_maj_ref(jnp.asarray(rows),
+                                          jnp.asarray(cmds))))
+
+
+@pytest.mark.parametrize("n_rows,n_cmds,seed",
+                         [(3, 48, 3), (8, 97, 4), (235, 600, 5)])
+def test_fsm_kernel_decode_matches_plain(n_rows, n_cmds, seed):
+    """The CUDA kernel's decoded ports, padding and MAJ (modelled on numpy)
+    ≡ the plain FSM on aliased streams; writing a MAJ's ports in another
+    order than a, b, c does not, so the streams hold that order."""
+    rng = np.random.default_rng(seed)
+    cmds = aliased_stream(rng, n_rows, n_cmds)
+    rows = random_words((n_rows, 32)).view(np.int32)
+    want = uprog_execute_plain(torch.from_numpy(cmds),
+                               torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(run_decoded(cmds, rows), want)
+    assert not np.array_equal(run_decoded(cmds, rows, order=(2, 1, 0)), want)
+
+
+def test_to_planes_shuffle_network_is_the_transpose():
+    """The to-planes kernel's 5-stage network (modelled on numpy, lanes on
+    an axis): stage j rotates the partner's word by j (lanes without bit
+    j) or 32 − j (lanes with it) and replaces the columns ``keep``
+    selects; lane i ends with plane word i."""
+    x = random_words((50, 32))                     # 50 groups of 32 lanes
+    lane = np.arange(32)
+    v = x.astype(np.uint64)
+    for j in (16, 8, 4, 2, 1):
+        low = 0xFFFFFFFF // ((1 << j) + 1)
+        upper = (lane & j) == 0
+        keep = np.where(upper, ~low & 0xFFFFFFFF, low).astype(np.uint64)
+        p = v[:, lane ^ j]
+        s = np.where(upper, j, 32 - j).astype(np.uint64)
+        moved = ((p << s) | (p >> (np.uint64(32) - s))) & 0xFFFFFFFF
+        v = v ^ ((v ^ moved) & keep)
+    want = to_planes_plain(torch.from_numpy(x.reshape(-1).view(np.int32)), 32)
+    np.testing.assert_array_equal(v.astype(np.uint32).T, u32(want))
 
 
 def test_fsm_banked_row_file_is_per_bank():
@@ -140,6 +245,39 @@ def test_fsm_kernel_matches_plain_on_gpu():
         got = uprog_execute(cmds, rows)
         assert uprog_execute.launches == n + 1
         assert torch.equal(got, uprog_execute_plain(cmds, rows)), trace.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,n_cmds", [(3, 5), (3, 600), (32, 600),
+                                           (235, 600)])
+def test_fsm_kernel_matches_plain_on_aliased_streams_on_gpu(n_rows, n_cmds):
+    """Aliased ports at R 3/32/235 on 3 banks × 97 words (columns not a
+    multiple of the 32-column block), N below one unrolled group and above
+    one staged chunk of 256 (not a multiple of it)."""
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(n_rows + n_cmds)
+    cmds = torch.from_numpy(aliased_stream(rng, n_rows, n_cmds)).to(dev)
+    rows = torch.from_numpy(random_words((3, n_rows, 97))
+                            .view(np.int32)).to(dev)
+    n = uprog_execute.launches
+    got = uprog_execute(cmds, rows)
+    assert uprog_execute.launches == n + 1
+    assert torch.equal(got, uprog_execute_plain(cmds, rows))
+
+
+@pytest.mark.gpu
+def test_to_planes_kernel_every_width_on_gpu():
+    """to-planes at every n_bits 1–32, at 37 groups (below one block of
+    128) and 300 (not a multiple of it)."""
+    dev = cuda_or_skip()
+    for groups in (37, 300):
+        v = torch.from_numpy(random_words(32 * groups).view(np.int32)).to(dev)
+        for n_bits in range(1, 33):
+            n = to_planes.launches
+            got = to_planes(v, n_bits)
+            assert to_planes.launches == n + 1
+            assert torch.equal(got, to_planes_plain(v, n_bits)), \
+                (groups, n_bits)
 
 
 @pytest.mark.gpu
