@@ -32,6 +32,18 @@ Phases, each fatal on failure:
    BitWeaving scan over 4,194,304 codes (four passes), masked darken through
    the user-defined ``gated_sub``, and the XNOR layer at FC6 and FC7, every
    value checked against numpy, launch counters read around each pass;
+4c. the serving path: ``SimdramServer(n_machines=2, n_banks=16,
+   device="cuda", mode="replay")`` with 32 users on the serving
+   benchmark's mix (qwen1_5_0_5b, mamba2_130m, whisper_large_v3,
+   olmoe_1b_7b, round-robin), 16 tokens each, arrivals 200 modeled ns
+   apart; every session's final value checked against a numpy replay of
+   its recurrence, and the ``ServingStats`` snapshot against the same run
+   on ``device="cpu"`` (the plain kernel versions), exactly;
+4d. the in-DRAM greedy sampler: ``simdram_greedy_token`` on seeded
+   float32 logits (16, 151,936) (Qwen1.5-0.5B's vocabulary) with a few
+   ``-inf`` entries, under a ``PerfStats``; token ids, quantized logits and
+   the ``PerfStats`` snapshot checked against the CPU run, exactly, and
+   54 μPrograms and 3 transposition passes a call;
 5. kernel times with CUDA events and the profiler beside the plain
    versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
    FSM at multiplication/8b and division/32b; the transposition kernels at
@@ -58,7 +70,9 @@ An earlier source comes from git, e.g.
 ``git show 9a3d5b9:src/repro_torch/kernels/csrc/uprog_executor.cu``, into
 a git-ignored directory such as ``build/ab_old/``.
 
-Every comparison is exact: the values are integers.  The last line is the
+Phases 4, 4b, 4c and 4d each set every kernel's launch counter to 0
+before the path and fail if a kernel of that path did not launch.  Every
+comparison is exact: the values are integers.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
 and its power limit; the ``{"kernels": [...]}`` line comes before that.
 Without a CUDA device, or without the package beside this script, it
@@ -96,6 +110,13 @@ FSM_TIMED = (("multiplication", 8), ("division", 32))
 APP_IMAGE = (1024, 1024)        # 16 banks × 65,536 lanes: one full pass
 APP_CODES = 4 * BANKS * LANES   # four passes of the scan
 SEED = 0x51D0
+# phase 4c: the serving benchmark's request mix (benchmarks/bench_serving.py)
+SERVE_MIX = ("qwen1_5_0_5b", "mamba2_130m", "whisper_large_v3",
+             "olmoe_1b_7b")
+SERVE_USERS, SERVE_TOKENS, SERVE_GAP_NS = 32, 16, 200.0
+# phase 4d: a decode batch of 16 over Qwen1.5-0.5B's vocabulary
+SAMPLER_SHAPE = (16, 151_936)
+SAMPLER_WARM_CALLS = 5
 # kernel → largest |kernel − plain version| seen in phases 2, 3 and 2b
 MAX_ABS_ERR: dict[str, int] = {}
 
@@ -425,6 +446,131 @@ def apps_path(device, backend: str | None, inp: dict) -> dict:
         _check(np.array_equal(got, want), f"xnor layer {label}")
     return {"seconds": seconds, "cache": apps.machine.cache_stats()}
 
+
+# -- phase 4c ----------------------------------------------------------------
+
+def serving_run(device) -> tuple:
+    """32 users x 16 tokens through ``SimdramServer`` on ``device``.
+    Returns (server, handles, stats, host seconds)."""
+    import torch
+
+    from repro_torch.serve import SimdramServer
+    t0 = time.perf_counter()
+    server = SimdramServer(n_machines=2, n_banks=BANKS, device=device,
+                           mode="replay")
+    handles = [server.submit_session(SERVE_MIX[u % len(SERVE_MIX)],
+                                     n_tokens=SERVE_TOKENS,
+                                     arrival_ns=u * SERVE_GAP_NS, seed=u)
+               for u in range(SERVE_USERS)]
+    stats = server.run()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return server, handles, stats, time.perf_counter() - t0
+
+
+def serving_oracle(profile, n_tokens: int, seed: int):
+    """A session's final value, replayed in numpy from its seeded state."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hi = 1 << profile.n_bits
+    a = rng.integers(0, hi, profile.lanes, dtype=np.int64)
+    b = rng.integers(1, hi, profile.lanes, dtype=np.int64)
+    step = {"addition": np.add, "multiplication": np.multiply,
+            "subtraction": np.subtract, "maximum": np.maximum,
+            "minimum": np.minimum}[profile.op]
+    for _ in range(n_tokens):
+        a = step(a, b) & (hi - 1)
+    return a
+
+
+def serving_path(device) -> dict:
+    """Phase 4c's run on the card, checked against numpy and against the
+    same run on the CPU."""
+    import numpy as np
+
+    server, handles, stats, seconds = serving_run(device)
+    _check(all(h.done() for h in handles), "a serving session did not retire")
+    for u, h in enumerate(handles):
+        got = h.result()
+        _check(got.device.type == "cuda", "a session's state left the card")
+        want = serving_oracle(h.session.profile, SERVE_TOKENS, u)
+        _check(np.array_equal(got.cpu().numpy(), want),
+               f"session {u} ({h.session.profile.config}) != numpy replay")
+    snap = stats.snapshot()
+    _check(snap["n_sessions"] == SERVE_USERS
+           and snap["total_tokens"] == SERVE_USERS * SERVE_TOKENS,
+           f"served {snap['n_sessions']} sessions, "
+           f"{snap['total_tokens']} tokens")
+    _, cpu_handles, cpu_stats, cpu_seconds = serving_run("cpu")
+    _check(cpu_stats.snapshot() == snap,
+           "ServingStats snapshot differs from the CPU run's")
+    _check(all(np.array_equal(h.result().cpu().numpy(),
+                              c.result().numpy())
+               for h, c in zip(handles, cpu_handles)),
+           "session values differ from the CPU run's")
+    return {"seconds": seconds, "cpu_seconds": cpu_seconds,
+            "report": stats.report(), "snapshot": snap}
+
+
+# -- phase 4d ----------------------------------------------------------------
+
+def sampler_logits():
+    """Seeded float32 logits of a decode batch, a few entries masked."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    logits = rng.standard_normal(SAMPLER_SHAPE, dtype=np.float32)
+    rows = rng.integers(0, SAMPLER_SHAPE[0], 64)
+    cols = rng.integers(0, SAMPLER_SHAPE[1], 64)
+    logits[rows, cols] = -np.inf
+    return logits
+
+
+def sampler_call(machine, logits) -> tuple:
+    """One ``simdram_greedy_token`` call on ``machine`` under a fresh
+    ``PerfStats``: (token ids, PerfStats, host seconds)."""
+    import torch
+
+    from repro_torch.ops import PerfStats
+    from repro_torch.serve.decode import simdram_greedy_token
+    x = torch.as_tensor(logits, device=machine.device)
+    st = PerfStats()
+    t0 = time.perf_counter()
+    tok = simdram_greedy_token(x, machine=machine, perf_stats=st)
+    if machine.device.type == "cuda":
+        torch.cuda.synchronize()
+    return tok, st, time.perf_counter() - t0
+
+
+def sampler_path(device, logits) -> dict:
+    """Phase 4d: one call on a fresh machine on the card, checked against
+    the same call on the CPU.  Returns the machine (warm now) and the
+    host seconds."""
+    import torch
+
+    from repro_torch.ops import SimdramMachine
+    from repro_torch.serve.decode import quantize_logits
+    machine = SimdramMachine(device=device)
+    tok, st, cold = sampler_call(machine, logits)
+    cpu_tok, cpu_st, cpu_seconds = sampler_call(
+        SimdramMachine(device="cpu"), logits)
+    _check(tok.device.type == "cuda" and tok.shape == (SAMPLER_SHAPE[0],),
+           f"token ids {tuple(tok.shape)} on {tok.device}")
+    _check(torch.equal(tok.cpu(), cpu_tok), "token ids differ from the CPU's")
+    q = quantize_logits(torch.as_tensor(logits, device=device))
+    cpu_q = quantize_logits(torch.as_tensor(logits))
+    _check(torch.equal(q.cpu(), cpu_q),
+           "quantized logits differ from the CPU's")
+    rows = torch.arange(SAMPLER_SHAPE[0], device=device)
+    _check(torch.equal(q[rows, tok.long()], q.amax(-1)),
+           "a token id is not a maximal quantized logit")
+    _check(st.n_programs == 54 and st.n_transposes == 3,
+           f"{st.n_programs} μPrograms and {st.n_transposes} transposition "
+           "passes a call, expected 54 and 3")
+    _check(st.snapshot() == cpu_st.snapshot(),
+           "PerfStats snapshot differs from the CPU run's")
+    return {"machine": machine, "cold_seconds": cold,
+            "cpu_seconds": cpu_seconds, "exec_ns": st.exec_ns,
+            "total_ns": st.total_ns}
 
 # -- phase 5 -----------------------------------------------------------------
 
@@ -907,6 +1053,38 @@ def main() -> int:
                              "seconds"])
     del inputs
 
+    for w in wrappers.values():
+        w.launches = 0
+    serve = serving_path(device)
+    serve_launches = {name: wrappers[name].launches for name in wrappers}
+    print(f"phase 4c: serving path OK, {SERVE_USERS} users x {SERVE_TOKENS} "
+          f"tokens on 2 machines x {BANKS} banks in {serve['seconds']:.2f} s "
+          f"of host wall time (the CPU run: {serve['cpu_seconds']:.2f} s); "
+          f"launches {serve_launches}")
+    print(serve["report"])
+    idle = [name for name in main_kernels if serve_launches[name] == 0]
+    _check(not idle, f"kernels not launched on the serving path: {idle}")
+    device_breakdown("serving path", lambda: serving_run(device)[3])
+
+    logits = sampler_logits()
+    for w in wrappers.values():
+        w.launches = 0
+    sampler = sampler_path(device, logits)
+    sampler_launches = {name: wrappers[name].launches for name in wrappers}
+    warm = [sampler_call(sampler["machine"], logits)[2]
+            for _ in range(SAMPLER_WARM_CALLS)]
+    print(f"phase 4d: sampler OK at {SAMPLER_SHAPE}: 54 μPrograms, 3 "
+          f"transposition passes, {sampler['exec_ns']:.1f} modeled ns of "
+          f"execution ({sampler['total_ns']:.1f} ns in all) a call; host "
+          f"wall time {sampler['cold_seconds']:.3f} s cold, warm "
+          f"{' '.join(f'{t:.4f}' for t in warm)} s (CPU run "
+          f"{sampler['cpu_seconds']:.2f} s); launches {sampler_launches}")
+    idle = [name for name in main_kernels if sampler_launches[name] == 0]
+    _check(not idle, f"kernels not launched by the sampler: {idle}")
+    device_breakdown("sampler (one warm call)",
+                     lambda: sampler_call(sampler["machine"], logits)[2])
+    del logits, sampler
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_mhz = float(_smi("clocks.max.sm").split()[0])
     int_ops_per_s = sms * INT32_LANES_PER_SM * max_mhz * 1e6
@@ -918,6 +1096,14 @@ def main() -> int:
     kernels = measure(device, launches, int_ops_per_s)
     kernels += measure_bitserial(
         device, app_launches["unrolled"]["bitserial_matmul"], popc_per_s)
+    by_path = {"main": launches, "applications/unrolled":
+               app_launches["unrolled"], "applications/kernel":
+               app_launches["kernel"], "serving": serve_launches,
+               "sampler": sampler_launches}
+    for row in kernels:
+        wrapper = row["name"].split("/")[0]
+        row["launches_by_path"] = {path: counts.get(wrapper, 0)
+                                   for path, counts in by_path.items()}
     if ab_old:
         ab = {kernel: AB_RUNS[kernel](device, build_old(src))
               for kernel, src in ab_old.items()}

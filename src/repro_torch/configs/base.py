@@ -1,0 +1,166 @@
+"""Model/runtime configuration system.
+
+One ``ModelConfig`` covers all ten assigned architecture families (dense,
+MoE, MLA, hybrid SSM, pure SSM, enc-dec audio, VLM).  Every architecture
+config file in this package exports ``CONFIG`` (full size, dry-run only) and
+``reduced()`` (CPU-smoke-test size, same family/topology).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 → d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    rope: str = "rope"               # rope | mrope | none
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    # -- MoE ------------------------------------------------------------
+    moe: bool = False
+    n_experts: int = 0
+    experts_per_tok: int = 0
+    d_expert: int = 0                # expert FFN hidden dim
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+
+    # -- MLA (DeepSeek-V2 multi-head latent attention) --------------------
+    mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 64          # decoupled RoPE key dim
+
+    # -- SSM (Mamba2/SSD) --------------------------------------------------
+    ssm_state: int = 0
+    ssm_heads: int = 0               # 0 → d_inner // 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 64
+    # layer pattern: per-layer 'attn' | 'ssm' | 'shared_attn'; empty → attn
+    layer_pattern: tuple[str, ...] = ()
+
+    # -- enc-dec (whisper) --------------------------------------------------
+    enc_dec: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500          # frames after the conv frontend (stub)
+
+    # -- modality frontends (stubs per assignment) --------------------------
+    frontend: str = "none"           # none | audio_stub | vision_stub
+
+    # -- paper integration (SIMDRAM bit-serial layers) ----------------------
+    pum_mlp: bool = False            # binarized (XNOR-popcount) MLP path
+    pum_bits: int = 8
+
+    # -- training/runtime ----------------------------------------------------
+    remat: str = "full"              # none | full | dots
+    scan_layers: bool = True
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    loss_chunk: int = 0              # >0: chunked-vocab loss (§Perf)
+    ssd_f32: bool = True             # SSD scan internals in f32 (vs bf16)
+    cross_kv_cache: bool = True      # enc-dec decode: cache cross-attn K/V
+    kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8 (quantized KV cache)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def d_inner(self) -> int:        # SSM inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads or max(1, self.d_inner // 64)
+
+    def pattern(self) -> tuple[str, ...]:
+        if self.layer_pattern:
+            assert len(self.layer_pattern) == self.n_layers
+            return self.layer_pattern
+        return ("attn",) * self.n_layers
+
+    def decode_supported(self) -> bool:
+        return True                  # all assigned archs have a decoder
+
+    def long_context_supported(self) -> bool:
+        """long_500k runs only for sub-quadratic (SSM/hybrid) archs; pure
+        full-attention archs skip it (see DESIGN.md §Arch-applicability)."""
+        return self.family in ("ssm", "hybrid")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS and memory plans)."""
+        d, v = self.d_model, self.vocab
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for kind in self.pattern():
+            if kind == "ssm":
+                di, st, nh = self.d_inner, self.ssm_state, self.n_ssm_heads
+                # in_proj (z,x,B,C,dt) + out_proj + conv (as in mamba2)
+                total += d * (2 * di + 2 * st + nh) + di * d + 3 * di
+            else:
+                if self.mla:
+                    r, rh = self.kv_lora_rank, self.rope_head_dim
+                    qd = self.n_heads * (self.hd + rh)
+                    total += d * (r + rh) + r * self.n_heads * 2 * self.hd
+                    total += (d * self.q_lora_rank + self.q_lora_rank * qd
+                              if self.q_lora_rank else d * qd)
+                    total += self.n_heads * self.hd * d
+                else:
+                    total += d * self.hd * (self.n_heads + 2 * self.n_kv_heads)
+                    total += self.n_heads * self.hd * d
+                if self.moe:
+                    e = self.n_experts * 3 * d * self.d_expert
+                    e += self.n_shared_experts * 3 * d * self.d_expert
+                    total += e + d * self.n_experts
+                else:
+                    total += 3 * d * self.d_ff
+        if self.enc_dec:
+            # encoder layers: self-attn + mlp; decoder cross-attn already in
+            # n_layers accounting above? encoder counted here:
+            enc = self.n_encoder_layers * (4 * d * self.hd * self.n_heads // 1
+                                           + 3 * d * self.d_ff)
+            total += enc
+        return total
+
+    def active_param_count(self) -> int:
+        """Active (per-token) params — the MoE-aware count for MODEL_FLOPS."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        dense_experts = self.experts_per_tok + self.n_shared_experts
+        per_layer_active = dense_experts * 3 * d * self.d_expert + d * self.n_experts
+        per_layer_all = ((self.n_experts + self.n_shared_experts) * 3 * d
+                         * self.d_expert + d * self.n_experts)
+        return self.param_count() - self.n_layers * (per_layer_all - per_layer_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> bool:
+    if shape == "long_500k":
+        return cfg.long_context_supported()
+    return True

@@ -1,0 +1,129 @@
+"""In-DRAM greedy sampling: the bank-batched SIMDRAM argmax.
+
+``simdram_greedy_token`` is the PuM-offloaded sampler: per-sequence logits
+are quantized and the greedy token is selected by a bank-batched SIMDRAM
+max tournament — each sequence's logits occupy one DRAM bank (the paper's
+16-bank scaling), the whole batch votes in parallel, and every comparison
+is a ``bbop_greater``/``bbop_if_else`` pair executing on the selected
+backend with zero per-op layout conversion.
+
+The prefill and decode steps and the greedy decode loop
+(``make_prefill``, ``make_serve_step``, ``greedy_decode``) run the model
+stack's ``forward`` and come with the port of ``models/``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.bbops import (PerfStats, bbop_greater, bbop_if_else,
+                         simdram_pipeline)
+
+__all__ = ["simdram_argmax", "simdram_greedy_token", "quantize_logits"]
+
+_MIN_LANES = 32          # one packed word — the tournament floor
+
+
+def simdram_argmax(values: torch.Tensor, n_bits: int = 8,
+                   backend: str | None = None,
+                   perf_stats: PerfStats | None = None,
+                   machine=None) -> torch.Tensor:
+    """Row-wise argmax of unsigned ``values (B, V)`` via a plane-resident
+    max tournament, one bank per row; returns int32 indices ``(B,)`` on
+    the tournament's device.
+
+    Values and winner indices are loaded vertical up front (one
+    transposition pass each — they differ in width, so they cannot share a
+    pass); each round splits the lane axis in half (free row/lane
+    re-indexing) and keeps the winners with one ``bbop_greater`` + two
+    ``bbop_if_else`` — all banks in parallel, zero per-op conversions.
+    Below one packed word the same tournament continues SWAR-style: the
+    candidates are compared against their lane-shifted selves
+    (:meth:`~repro_torch.simdram.layout.BitplaneArray.shift_lanes`, free
+    word shifts) at strides 16, 8, 4, 2, 1 until lane 0 holds the winner,
+    so only the index planes pay a reverse pass — 3 transposition passes
+    total regardless of V or round count, no host reduction epilogue.
+    Ties resolve deterministically: a strictly greater upper half or
+    shifted lane wins, so the result is the same maximal index on every
+    backend and device.
+
+    The tournament runs where the machine's data lives: ``machine``'s
+    device, else the open session's, else the default machine's
+    (``"cuda"``).  ``perf_stats`` runs it under the timed execution layer,
+    accumulating modeled DRAM cost (latency, energy, transposition) into
+    the given :class:`~repro_torch.core.backends.PerfStats` — pass one
+    accumulator across calls to meter a whole decode loop.  ``machine``
+    binds the tournament to a
+    :class:`~repro_torch.simdram.machine.SimdramMachine` session: its
+    backend, its μProgram Memory, its device and (absent an explicit
+    ``perf_stats``) its own accumulator and DRAM model.
+    """
+    b, v = values.shape
+    lanes = max(_MIN_LANES, 1 << (v - 1).bit_length())
+    # int32 words are bit-identical to the reference's uint32 padding
+    vals = torch.nn.functional.pad(values.to(torch.int32), (0, lanes - v))
+    idx_bits = max(1, (lanes - 1).bit_length())
+    idx = torch.arange(lanes, dtype=torch.int32,
+                       device=values.device).expand(b, lanes)
+    with simdram_pipeline(banks=b, backend=backend,
+                          perf_stats=perf_stats, machine=machine,
+                          timed=machine is not None and perf_stats is None
+                          ) as p:
+        cur_v = p.load(vals, n_bits)
+        cur_i = p.load(idx, idx_bits)
+        while cur_v.words > _MIN_LANES // 32:
+            lo_v, hi_v = cur_v.split_lanes()
+            lo_i, hi_i = cur_i.split_lanes()
+            win = bbop_greater(hi_v, lo_v, n_bits)
+            cur_v = bbop_if_else(win, hi_v, lo_v, n_bits)
+            cur_i = bbop_if_else(win, hi_i, lo_i, idx_bits)
+        # SWAR finish within the last packed word: strict greater keeps
+        # the lower lane on ties, and the zero-filled shifted-in lanes
+        # never beat a live candidate, so lane 0 converges to a maximal
+        # index without leaving the vertical layout
+        k = _MIN_LANES // 2
+        while k:
+            sh_v = cur_v.shift_lanes(k)
+            sh_i = cur_i.shift_lanes(k)
+            win = bbop_greater(sh_v, cur_v, n_bits)
+            cur_v = bbop_if_else(win, sh_v, cur_v, n_bits)
+            cur_i = bbop_if_else(win, sh_i, cur_i, idx_bits)
+            k //= 2
+        final_i = cur_i.to_values()              # (B, 32), winner in lane 0
+    return final_i[:, 0]
+
+
+def quantize_logits(logits: torch.Tensor, n_bits: int = 8) -> torch.Tensor:
+    """Affine per-row quantization of float logits ``(B, V)`` to
+    ``n_bits`` unsigned levels (int32), the transposition-unit write
+    format the tournament ranks.
+
+    Float32 throughout, one tensor op at a time (no fused multiply-add
+    can move a value across a bin edge); ``torch.round`` rounds half to
+    even.  Non-finite logits (vocab masking with ``-inf``) map to bin 0
+    rather than poisoning the per-row scale.
+    """
+    logits = logits.to(torch.float32)
+    finite = torch.isfinite(logits)
+    lo = torch.where(finite, logits, float("inf")).amin(-1, keepdim=True)
+    hi = torch.where(finite, logits, float("-inf")).amax(-1, keepdim=True)
+    scale = (2 ** n_bits - 1) / torch.clamp(hi - lo, min=1e-9)
+    q = torch.round((logits - lo) * scale)
+    q = torch.where(finite, q, 0.0)
+    return torch.clamp(q, 0, 2 ** n_bits - 1).to(torch.int32)
+
+
+def simdram_greedy_token(logits: torch.Tensor, n_bits: int = 8,
+                         backend: str | None = None,
+                         perf_stats: PerfStats | None = None,
+                         machine=None) -> torch.Tensor:
+    """Greedy token per sequence, selected in-memory.
+
+    Logits ``(B, V)`` are affinely quantized per row to ``n_bits`` unsigned
+    levels (:func:`quantize_logits`) and ranked by the banked SIMDRAM
+    tournament (:func:`simdram_argmax`).  Quantization collisions among
+    near-ties may pick a token within one quantization bin of the float
+    argmax.
+    """
+    return simdram_argmax(quantize_logits(logits, n_bits), n_bits=n_bits,
+                          backend=backend, perf_stats=perf_stats,
+                          machine=machine)

@@ -36,7 +36,13 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(port_modules()) >= 22
+    assert len(port_modules()) >= 45
+    # the serving slice: configs, server, sampler and launcher
+    assert {"repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.serve", "repro_torch.serve.batching",
+            "repro_torch.serve.server", "repro_torch.serve.decode",
+            "repro_torch.launch", "repro_torch.launch.serve"} \
+        <= set(port_modules())
 
 
 def test_port_sources_import_no_jax_and_no_repro():
@@ -64,12 +70,18 @@ def test_every_sliced_reference_module_has_a_counterpart():
                 "ops/__init__.py", "kernels/uprog_executor.py",
                 "kernels/bitplane_transpose.py", "kernels/ops.py",
                 "kernels/ref.py", "core/unrolled.py",
-                "kernels/bitserial_matmul.py"):
+                "kernels/bitserial_matmul.py", "configs/__init__.py",
+                "configs/base.py", "serve/__init__.py", "serve/batching.py",
+                "serve/server.py", "serve/decode.py", "launch/__init__.py",
+                "launch/serve.py"):
         assert (ref / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     # the applications example becomes a module of the port
     assert (PORT.parents[1] / "examples" / "simdram_apps.py").exists()
     assert (PORT / "apps.py").exists()
+    # every architecture config is copied
+    for path in (ref / "configs").glob("*.py"):
+        assert (PORT / "configs" / path.name).exists(), path.name
 
 
 def test_default_machine_runs_on_cuda_and_refuses_a_missing_card(monkeypatch):
