@@ -44,8 +44,25 @@ Phases, each fatal on failure:
    ``-inf`` entries, under a ``PerfStats``; token ids, quantized logits and
    the ``PerfStats`` snapshot checked against the CPU run, exactly, and
    54 μPrograms and 3 transposition passes a call;
-5. kernel times with CUDA events and the profiler beside the plain
-   versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
+4e. the LM serving path: Qwen1.5-0.5B at full width (24 layers, d_model
+   1,024, vocab 151,936, bf16 compute, parameters drawn on the card from a
+   seed) greedily decodes 32 tokens for 16 sequences after a 128-token
+   prompt, through ``repro_torch.serve.decode.greedy_decode`` with the host
+   sampler and with the in-DRAM sampler (``SimdramMachine(device="cuda",
+   banks=16)``, the FSM and transposition kernels); checks (a) cached
+   decode == no-cache forward at full width in float32 (2 layers, 12
+   steps, 2e-3), (b) each sampled token is a maximal quantized logit of its
+   step, (c) the same pick as the ``unrolled`` backend, (d) the reduced
+   config on the card == the CPU within the bf16 tolerance, (e) the
+   XNOR-popcount kernel on the full-width pum gate operands == the einsum
+   of their signs, exactly; prints prefill and per-token times (CUDA
+   events around every forward of the same ``greedy_decode`` run; a token
+   is one cached step forward and its pick), launches a token, the
+   sampler's modeled ns/nJ a token, the device's busy share and the torch
+   ops the host issues a decode step;
+5. (run before 4e, printed after it) kernel times with CUDA events and
+   the profiler (a trace that lost kernel events against the launch
+   counter is taken again) beside the plain versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
    FSM at multiplication/8b and division/32b; the transposition kernels at
    1, 8 and 32 planes, with their inputs rotating past the L2 and with one
    input (``kernel_warm_ms``), beside the profiler time of a PyTorch copy
@@ -70,9 +87,10 @@ An earlier source comes from git, e.g.
 ``git show 9a3d5b9:src/repro_torch/kernels/csrc/uprog_executor.cu``, into
 a git-ignored directory such as ``build/ab_old/``.
 
-Phases 4, 4b, 4c and 4d each set every kernel's launch counter to 0
+Phases 4, 4b, 4c, 4d and 4e each set every kernel's launch counter to 0
 before the path and fail if a kernel of that path did not launch.  Every
-comparison is exact: the values are integers.  The last line is the
+comparison of integers is exact; float logits are compared within the
+stated tolerances.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
 and its power limit; the ``{"kernels": [...]}`` line comes before that.
 Without a CUDA device, or without the package beside this script, it
@@ -117,6 +135,13 @@ SERVE_USERS, SERVE_TOKENS, SERVE_GAP_NS = 32, 16, 200.0
 # phase 4d: a decode batch of 16 over Qwen1.5-0.5B's vocabulary
 SAMPLER_SHAPE = (16, 151_936)
 SAMPLER_WARM_CALLS = 5
+# phase 4e: Qwen1.5-0.5B at full width, 16 sequences, a 128-token prompt
+# and 32 new tokens; checks (a) at 2 layers and 12 steps
+LM_ARCH = "qwen1.5-0.5b"
+LM_BATCH, LM_PROMPT, LM_NEW = 16, 128, 32
+LM_CHECK_LAYERS, LM_CHECK_STEPS = 2, 12
+LM_REPEATS = 3                  # warm timings of the prefill and each sampler
+LM_SELF_ABS, LM_BF16_REL = 2e-3, 5e-2     # the CPU tests' tolerances
 # kernel → largest |kernel − plain version| seen in phases 2, 3 and 2b
 MAX_ABS_ERR: dict[str, int] = {}
 
@@ -125,6 +150,12 @@ def _smi(query: str) -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def _check(cond: bool, what: str) -> None:
@@ -572,6 +603,257 @@ def sampler_path(device, logits) -> dict:
             "cpu_seconds": cpu_seconds, "exec_ns": st.exec_ns,
             "total_ns": st.total_ns}
 
+# -- phase 4e ----------------------------------------------------------------
+
+def lm_model(cfg, device, seed: int):
+    """The port's Transformer for ``cfg`` on ``device``, its parameters drawn
+    by ``init_params`` from a seeded generator on ``device``."""
+    import torch
+
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import Transformer, model_defs
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(model_defs(cfg), gen, device=device)
+    return Transformer(cfg, device=device).load_params(params)
+
+
+def lm_tokens(cfg, shape: tuple, seed: int, device):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab, shape),
+                           device=device)
+
+
+def lm_decode_matches_prefill(device) -> float:
+    """Check (a): at full width in float32 compute and 2 layers, the logits
+    of 12 one-token cached steps equal a no-cache forward within 2e-3 (the
+    CPU tests' bound).  Returns the largest difference."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_caches
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CHECK_LAYERS,
+                              compute_dtype="float32")
+    model = lm_model(cfg, device, SEED + 7)
+    b, s = 2, LM_CHECK_STEPS
+    toks = lm_tokens(cfg, (b, s), SEED + 8, device)
+    with torch.no_grad():
+        full = model({"tokens": toks})[0]
+    caches = init_caches(cfg, b, s, dtype=torch.float32, device=device)
+    outs = []
+    for t in range(s):
+        logits, _, caches = model({"tokens": toks[:, t:t + 1]}, caches)
+        outs.append(logits)
+    err = float((torch.cat(outs, 1) - full).abs().max())
+    _check(err < LM_SELF_ABS, f"cached decode differs from the no-cache "
+           f"forward by {err} at full width (limit {LM_SELF_ABS})")
+    return err
+
+
+def lm_generate(model, cfg, prompt, sampler: str, machine=None,
+                perf=None) -> tuple:
+    """One ``greedy_decode`` call: (token ids, host seconds, prefill ms, ms a
+    decoded token).  CUDA events at the start and end of every forward
+    split the same run on the card's clock: the prefill is the first
+    forward; each of the ``LM_NEW − 1`` later tokens is one cached step
+    forward and its pick (from the start of the first step forward to the
+    end of the last pick).  The first token's pick and the cache
+    allocation are in neither figure."""
+    import torch
+
+    from repro_torch.serve.decode import greedy_decode
+    marks = []
+
+    def mark(*_):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    hooks = [model.register_forward_pre_hook(mark),
+             model.register_forward_hook(mark)]
+    try:
+        t0 = time.perf_counter()
+        out = greedy_decode(model, cfg, prompt, steps=LM_NEW,
+                            max_seq=LM_PROMPT + LM_NEW, sampler=sampler,
+                            sampler_perf=perf, machine=machine)
+        mark()
+        _sync(prompt.device)
+        seconds = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+    _check(len(marks) == 2 * LM_NEW + 1,
+           f"{len(marks) - 1} forward marks for {LM_NEW} forwards")
+    return (out, seconds, marks[0].elapsed_time(marks[1]),
+            marks[2].elapsed_time(marks[-1]) / (LM_NEW - 1))
+
+
+def lm_gate_input(model, cfg, prompt):
+    """Layer 0's MLP input during a prefill of ``prompt``: the pum gate's
+    activation operand, 2,048 × 1,024."""
+    import torch
+
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.serve.decode import make_prefill
+    seen = []
+    hook = model.blocks[0].ffn.register_forward_hook(
+        lambda mod, args, out: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
+                                 device=prompt.device)
+            make_prefill(cfg)(model, {"tokens": prompt}, caches)
+    finally:
+        hook.remove()
+    return seen[0].reshape(-1, cfg.d_model)
+
+
+def lm_replay_checks(model, cfg, prompt, tokens, unrolled) -> None:
+    """Checks (b) and (c): the decode replayed step by step on the same
+    tokens; each token the in-DRAM sampler picked is a maximal index of
+    that step's quantized logits, and equals the pick of the ``unrolled``
+    backend (eager torch, no FSM kernel) on the same logits."""
+    import torch
+
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.serve.decode import (make_prefill, make_serve_step,
+                                          quantize_logits,
+                                          simdram_greedy_token)
+    rows = torch.arange(LM_BATCH, device=prompt.device)
+    with torch.no_grad():
+        caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
+                             device=prompt.device)
+        logits, caches = make_prefill(cfg)(model, {"tokens": prompt}, caches)
+        step = make_serve_step(cfg)
+        for t in range(LM_NEW):
+            last = logits[:, -1]
+            q = quantize_logits(last)
+            tok = tokens[:, t]
+            _check(torch.equal(q[rows, tok], q.amax(-1)),
+                   f"step {t}: a sampled token is not a maximal quantized "
+                   "logit")
+            other = simdram_greedy_token(last, machine=unrolled)
+            _check(torch.equal(other.long(), tok),
+                   f"step {t}: the unrolled backend picks other tokens")
+            if t + 1 < LM_NEW:
+                logits, caches = step(model, caches,
+                                      {"tokens": tokens[:, t:t + 1]})
+
+
+def lm_reduced_matches_cpu(device) -> tuple:
+    """Check (d): the reduced qwen1.5-0.5b (bf16 compute) on the card and on
+    the CPU with the same parameters, without and through the KV cache:
+    logits within 5e-2 × max|CPU logit|, greedy ids equal wherever the
+    CPU's top-2 gap exceeds that.  Returns (largest error, tolerance)."""
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.transformer import (Transformer, init_caches,
+                                                model_defs)
+    cfg = get_reduced(LM_ARCH)
+    params = init_params(model_defs(cfg), torch.Generator().manual_seed(SEED),
+                         device="cpu")
+    toks = lm_tokens(cfg, (4, 12), SEED + 9, "cpu")
+    worst = (0.0, 0.0)
+    for cached in (False, True):
+        out = {}
+        for dev in ("cpu", device):
+            model = Transformer(cfg, device=dev).load_params(
+                tree_map(lambda t, d=dev: t.to(d), params))
+            caches = init_caches(cfg, 4, 16, device=dev) if cached else None
+            with torch.no_grad():
+                logits = model({"tokens": toks.to(dev)}, caches)[0]
+            _check(logits.device.type == torch.device(dev).type,
+                   f"logits on {logits.device}, expected {dev}")
+            out[dev] = logits.cpu()
+        want, got = out["cpu"], out[device]
+        tol = LM_BF16_REL * float(want.abs().max())
+        err = float((got - want).abs().max())
+        _check(err <= tol, f"reduced {LM_ARCH} on the card differs from the "
+               f"CPU by {err} (limit {tol}, cached={cached})")
+        top2 = want.topk(2, -1).values
+        clear = (top2[..., 0] - top2[..., 1]) > tol
+        _check(bool(clear.any()) and torch.equal(
+            got.argmax(-1)[clear], want.argmax(-1)[clear]),
+            f"greedy ids on the card differ from the CPU's (cached={cached})")
+        worst = max(worst, (err, tol))
+    return worst
+
+
+def lm_pum_gate_check(x, w_gate) -> None:
+    """Check (e): K3 on ``pack_signs`` of the pum gate operands equals the
+    einsum of their signs, exactly."""
+    import torch
+
+    from repro_torch.kernels.bitserial_matmul import (bitserial_matmul,
+                                                      pack_signs)
+    from repro_torch.models.layers import sign_ste
+    with torch.no_grad():
+        want = torch.einsum("md,df->mf", sign_ste(x.float()),
+                            sign_ste(w_gate.float())).to(torch.int32)
+        got = bitserial_matmul(pack_signs(x), pack_signs(w_gate.t()),
+                               x.shape[1])
+    _equal(got, want, f"XNOR-popcount on the pum gate operands "
+           f"{tuple(x.shape)} x {tuple(w_gate.shape)}", "bitserial_matmul")
+
+
+def lm_serving_path(device, wrappers: dict) -> dict:
+    """Phase 4e: greedy decoding of Qwen1.5-0.5B at full width on the card,
+    each token picked by the in-DRAM sampler; checks (a)–(e).  Returns the
+    launch counts of the simdram run and the numbers to print."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.ops import PerfStats, SimdramMachine
+    res = {"decode_err": lm_decode_matches_prefill(device)}
+    cfg = get_config(LM_ARCH)
+    model = lm_model(cfg, device, SEED + 10)
+    res["params"] = sum(p.numel() for p in model.parameters())
+    prompt = lm_tokens(cfg, (LM_BATCH, LM_PROMPT), SEED + 11, device)
+    res["host_tokens"], res["host_cold_s"] = lm_generate(model, cfg, prompt,
+                                                         "host")[:2]
+    x = lm_gate_input(model, cfg, prompt)
+    machine = SimdramMachine(device=device, banks=LM_BATCH)
+    perf = PerfStats()
+    for w in wrappers.values():
+        w.launches = 0
+    tokens, res["simdram_cold_s"] = lm_generate(model, cfg, prompt,
+                                                "simdram", machine, perf)[:2]
+    res["launches"] = {name: w.launches for name, w in wrappers.items()}
+    _check(tokens.shape == (LM_BATCH, LM_NEW)
+           and tokens.device.type == torch.device(device).type
+           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+           f"sampled token ids {tuple(tokens.shape)} on {tokens.device}")
+    # a (greater, if_else, if_else) triple per halving round and SWAR
+    # stride: 3 · log2(lanes) μPrograms a token (54 at 262,144 lanes)
+    programs = 3 * (1 << (cfg.vocab - 1).bit_length()).bit_length() - 3
+    _check(perf.n_programs == programs * LM_NEW
+           and perf.n_transposes == 3 * LM_NEW,
+           f"{perf.n_programs} μPrograms and {perf.n_transposes} "
+           f"transposition passes for {LM_NEW} tokens, expected {programs} "
+           "and 3 a token")
+    res["perf"] = perf
+    # warm runs of both samplers in turns (the host's speed drifts)
+    # (host seconds, prefill ms, ms a decoded token) per run
+    res["host_runs"], res["simdram_runs"] = [], []
+    for _ in range(LM_REPEATS):
+        res["host_runs"].append(lm_generate(model, cfg, prompt, "host")[1:])
+        again, *run = lm_generate(model, cfg, prompt, "simdram", machine)
+        res["simdram_runs"].append(run)
+        _check(torch.equal(again, tokens), "a second simdram decode picked "
+               "other tokens")
+    res["agree"] = float((tokens == res["host_tokens"]).float().mean())
+    lm_replay_checks(model, cfg, prompt, tokens,
+                     SimdramMachine(device=device, banks=LM_BATCH,
+                                    backend="unrolled"))
+    res["reduced_err"] = lm_reduced_matches_cpu(device)
+    lm_pum_gate_check(x, model.blocks[0].ffn.w_gate.detach())
+    res["model"], res["cfg"], res["prompt"] = model, cfg, prompt
+    res["machine"] = machine
+    return res
+
 # -- phase 5 -----------------------------------------------------------------
 
 def cuda_ms(fn, inputs: list, iters: int) -> float:
@@ -592,24 +874,34 @@ def cuda_ms(fn, inputs: list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled_ms(fn, inputs: list, kernel: str, iters: int = 20
-                ) -> float | None:
+def profiled_ms(fn, inputs: list, kernel: str, iters: int = 20,
+                tries: int = 3) -> float | None:
     """Mean device time of the kernel named ``kernel`` per the profiler over
-    ``iters`` calls ``fn(*inputs[i % len])`` (None if the trace shows no
-    such kernel)."""
+    ``iters`` calls ``fn(*inputs[i % len])``.  The profiler has dropped a
+    kernel's events from a trace: a trace with fewer ``kernel`` events than
+    ``fn``'s launch counter (else ``iters``) rose by is taken again in a
+    fresh profiler session, up to ``tries`` times (None if none was
+    whole)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                fn(*inputs[i % len(inputs)])
-            torch.cuda.synchronize()
-    except RuntimeError as exc:        # CUPTI tracing not permitted here
-        print(f"profiler unavailable: {exc}")
-        return None
-    times = [e.device_time_total for e in prof.key_averages()
-             if kernel in e.key]
-    return sum(times) / iters / 1e3 if times else None
+    for _ in range(tries):
+        before = getattr(fn, "launches", 0)
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for i in range(iters):
+                    fn(*inputs[i % len(inputs)])
+                torch.cuda.synchronize()
+        except RuntimeError as exc:        # CUPTI tracing not permitted here
+            print(f"profiler unavailable: {exc}")
+            return None
+        launched = getattr(fn, "launches", before + iters) - before
+        rows = [e for e in prof.key_averages() if kernel in e.key]
+        seen = sum(e.count for e in rows)
+        if rows and seen >= launched:
+            return sum(e.device_time_total for e in rows) / iters / 1e3
+        print(f"profiler: {seen} {kernel} events for {launched} launches; "
+              "tracing again")
+    return None
 
 
 def copy_ms(inputs: list, iters: int = 20) -> float | None:
@@ -650,6 +942,24 @@ def device_breakdown(label: str, run) -> None:
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:9.3f} ms  x{count:<5} {key[:90]}")
     torch.cuda.synchronize()
+
+
+def host_breakdown(label: str, run, steps: int) -> None:
+    """Run a path once more under the profiler's CPU tracing and print the
+    torch ops it issued a step and the host time they took by op (the
+    tracing itself slows every op, so read the shares, not the sums)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        seconds = run()
+    rows = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+            for e in prof.key_averages()]
+    total = sum(ms for _, ms, _ in rows)
+    ops = sum(n for key, _, n in rows if key.startswith("aten::"))
+    print(f"{label} under CPU tracing: {seconds:.3f} s wall, {total:.1f} ms "
+          f"self CPU in {ops} aten ops, nested calls "
+          f"included ({ops / steps:.0f} a step)")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"  {ms:9.3f} ms  x{count:<6} {key[:80]}")
 
 
 def fsm_ops_per_word(cmds) -> int:
@@ -1085,6 +1395,9 @@ def main() -> int:
                      lambda: sampler_call(sampler["machine"], logits)[2])
     del logits, sampler
 
+    # phase 5's timings run before 4e: after 4e's long profiles (~75,000
+    # kernels each) the profiler's kernel times came out ~40 % below the
+    # CUDA events' on the same calls
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     max_mhz = float(_smi("clocks.max.sm").split()[0])
     int_ops_per_s = sms * INT32_LANES_PER_SM * max_mhz * 1e6
@@ -1096,14 +1409,70 @@ def main() -> int:
     kernels = measure(device, launches, int_ops_per_s)
     kernels += measure_bitserial(
         device, app_launches["unrolled"]["bitserial_matmul"], popc_per_s)
+
+    lm = lm_serving_path(device, wrappers)
+    lm_launches, perf, cfg = lm["launches"], lm["perf"], lm["cfg"]
+    per_token = {name: n / LM_NEW for name, n in lm_launches.items()}
+    print(f"phase 4e: {cfg.name} at full width ({lm['params']:,} "
+          f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.compute_dtype} compute), {LM_BATCH} sequences x "
+          f"{LM_PROMPT}-token prompt + {LM_NEW} new tokens")
+    print(f"phase 4e (a): cached decode == no-cache forward at "
+          f"{LM_CHECK_LAYERS} layers, float32, {LM_CHECK_STEPS} steps: max "
+          f"|diff| {lm['decode_err']:.3e} (limit {LM_SELF_ABS}; TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32})")
+    for name in ("host", "simdram"):
+        runs = lm[f"{name}_runs"]
+        mid = [sorted(col)[len(col) // 2] for col in zip(*runs)]
+        print(f"phase 4e: greedy_decode, {name} sampler, {LM_REPEATS} warm "
+              f"runs (cold {lm[f'{name}_cold_s']:.4f} s): "
+              f"{' '.join(f'{r[0]:.4f}' for r in runs)} s of host wall time; "
+              f"prefill {' '.join(f'{r[1]:.3f}' for r in runs)} ms; "
+              f"{' '.join(f'{r[2]:.3f}' for r in runs)} ms a decoded token "
+              f"(one cached step forward and its pick, tokens 2-{LM_NEW}, "
+              f"CUDA events in the same run); medians {mid[1]:.3f} ms "
+              f"prefill, {mid[2]:.3f} ms a token")
+    print(f"phase 4e: launches of the simdram run {lm_launches}, a token "
+          f"{per_token}")
+    print(f"phase 4e: sampler modeled {perf.total_ns / LM_NEW:.1f} ns and "
+          f"{perf.total_nj / LM_NEW:.1f} nJ of DRAM a token "
+          f"({perf.n_programs // LM_NEW} μPrograms, "
+          f"{perf.n_transposes // LM_NEW} transposition passes, "
+          f"{perf.max_banks} banks)")
+    print(f"phase 4e (b, c): every sampled token is a maximal quantized "
+          f"logit and equals the unrolled backend's pick; ids equal the "
+          f"host sampler's on {100 * lm['agree']:.2f}% of tokens")
+    print(f"phase 4e (d): reduced {LM_ARCH} on the card vs the CPU: max "
+          f"|diff| {lm['reduced_err'][0]:.4e} (limit "
+          f"{lm['reduced_err'][1]:.4e}); greedy ids equal where the top-2 "
+          "gap exceeds the limit")
+    print(f"phase 4e (e): XNOR-popcount on the pum gate operands "
+          f"({LM_BATCH * LM_PROMPT} x {cfg.d_model}) x ({cfg.d_model} x "
+          f"{cfg.d_ff}) == the einsum of their signs")
+    idle = [name for name in main_kernels if lm_launches[name] == 0]
+    _check(not idle, f"kernels not launched on the LM serving path: {idle}")
+    device_breakdown("LM serving, simdram sampler (one warm decode)",
+                     lambda: lm_generate(lm["model"], cfg, lm["prompt"],
+                                         "simdram", lm["machine"])[1])
+    device_breakdown("LM serving, host sampler (one warm decode)",
+                     lambda: lm_generate(lm["model"], cfg, lm["prompt"],
+                                         "host")[1])
+    host_breakdown("LM serving, host sampler (one warm decode)",
+                   lambda: lm_generate(lm["model"], cfg, lm["prompt"],
+                                       "host")[1], LM_NEW)
+    del lm
+    torch.cuda.empty_cache()
+
     by_path = {"main": launches, "applications/unrolled":
                app_launches["unrolled"], "applications/kernel":
                app_launches["kernel"], "serving": serve_launches,
-               "sampler": sampler_launches}
+               "sampler": sampler_launches, "lm_serving": lm_launches}
     for row in kernels:
         wrapper = row["name"].split("/")[0]
         row["launches_by_path"] = {path: counts.get(wrapper, 0)
                                    for path, counts in by_path.items()}
+        row["max_abs_err"] = MAX_ABS_ERR[wrapper]    # 4e's check (e) too
     if ab_old:
         ab = {kernel: AB_RUNS[kernel](device, build_old(src))
               for kernel, src in ab_old.items()}

@@ -1,6 +1,6 @@
-"""Pass plane-resident state between the port and numpy (and through numpy
-to the reference package): a :class:`BitplaneArray` is its uint32 plane
-words plus ``(n_bits, length, signed)``."""
+"""Pass state between the port and numpy (and through numpy to the
+reference package): a :class:`BitplaneArray` is its uint32 plane words plus
+``(n_bits, length, signed)``; a model is its parameter tree."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,3 +24,15 @@ def bitplanes_to_numpy(arr: BitplaneArray) -> tuple[np.ndarray, int, int, bool]:
     length, signed)``."""
     planes = arr.planes.detach().cpu().contiguous().numpy().view(np.uint32)
     return planes.copy(), arr.n_bits, arr.length, arr.signed
+
+
+def params_from_reference(cfg, tree, device: str | torch.device = "cuda"):
+    """The reference's parameter tree as numpy arrays (for example
+    ``jax.tree.map(np.asarray, params)``) → a
+    :class:`~repro_torch.models.transformer.Transformer` on ``device`` that
+    holds the same values: stacked ``blocks`` unstacked along the layer
+    axis, no ``lm_head`` where the embeddings are tied."""
+    from .models.params import tree_map
+    from .models.transformer import Transformer
+    tensors = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    return Transformer(cfg, device=device).load_params(tensors)

@@ -1,4 +1,6 @@
-"""In-DRAM greedy sampling: the bank-batched SIMDRAM argmax.
+"""Serving steps: prefill (cache-populating) and batched one-token decode,
+the greedy decode loop, and in-DRAM greedy sampling (the bank-batched
+SIMDRAM argmax).
 
 ``simdram_greedy_token`` is the PuM-offloaded sampler: per-sequence logits
 are quantized and the greedy token is selected by a bank-batched SIMDRAM
@@ -7,18 +9,50 @@ max tournament — each sequence's logits occupy one DRAM bank (the paper's
 is a ``bbop_greater``/``bbop_if_else`` pair executing on the selected
 backend with zero per-op layout conversion.
 
-The prefill and decode steps and the greedy decode loop
-(``make_prefill``, ``make_serve_step``, ``greedy_decode``) run the model
-stack's ``forward`` and come with the port of ``models/``.
+``make_prefill``/``make_serve_step`` wrap the model's forward;
+``greedy_decode`` runs prefill and one-token decode steps against zeroed
+KV caches and picks each token with ``torch.argmax`` (``sampler="host"``)
+or with :func:`simdram_greedy_token` on a machine (``sampler="simdram"``),
+which on a CUDA machine runs the FSM and transposition kernels.
 """
 from __future__ import annotations
 
 import torch
 
+from ..configs.base import ModelConfig
+from ..models.transformer import init_caches
 from ..ops.bbops import (PerfStats, bbop_greater, bbop_if_else,
                          simdram_pipeline)
 
-__all__ = ["simdram_argmax", "simdram_greedy_token", "quantize_logits"]
+__all__ = ["make_prefill", "make_serve_step", "greedy_decode",
+           "simdram_argmax", "simdram_greedy_token", "quantize_logits"]
+
+
+def _check_cfg(model, cfg: ModelConfig) -> None:
+    """The port's model carries its config; ``cfg`` is taken to keep the
+    reference's signatures and must be the same configuration."""
+    if cfg is not model.cfg and cfg != model.cfg:
+        raise ValueError(f"cfg {cfg.name!r} is not the model's config "
+                         f"({model.cfg.name!r} with other fields)")
+
+
+def make_prefill(cfg: ModelConfig):
+    """Multi-token forward that also populates the decode caches."""
+    def prefill(model, batch, caches):
+        _check_cfg(model, cfg)
+        logits, _, new_caches = model(batch, caches)
+        return logits[:, -1:], new_caches
+    return prefill
+
+
+def make_serve_step(cfg: ModelConfig):
+    """One decode step: (model, caches, tokens (B,1)) → (logits, caches)."""
+    def serve_step(model, caches, batch):
+        _check_cfg(model, cfg)
+        logits, _, new_caches = model(batch, caches)
+        return logits, new_caches
+    return serve_step
+
 
 _MIN_LANES = 32          # one packed word — the tournament floor
 
@@ -127,3 +161,52 @@ def simdram_greedy_token(logits: torch.Tensor, n_bits: int = 8,
     return simdram_argmax(quantize_logits(logits, n_bits), n_bits=n_bits,
                           backend=backend, perf_stats=perf_stats,
                           machine=machine)
+
+
+@torch.no_grad()
+def greedy_decode(model, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
+                  max_seq: int | None = None, sampler: str = "host",
+                  sampler_perf: PerfStats | None = None, machine=None):
+    """Greedy decoding loop: ``prompt (B, S)`` token ids on the model's
+    device → ``(B, steps)`` int64 token ids.
+
+    ``sampler="simdram"`` selects each token with the bank-batched PuM
+    tournament (:func:`simdram_greedy_token`, one bank per sequence) on
+    ``machine`` (else the open session's, else the default machine, on
+    ``"cuda"``), whose backend it uses; ``"host"`` is ``torch.argmax``,
+    whose first-maximum rule is ``jnp.argmax``'s.  ``sampler_perf``
+    accumulates the tournament's modeled DRAM cost across every decoded
+    token.  The KV caches are zeroed at ``max_seq`` (``S + steps`` by
+    default) in the cache's default bf16, and the prompt is prefilled
+    through them, as the reference does.  ``cfg`` must be ``model.cfg``
+    (ValueError otherwise).
+    """
+    _check_cfg(model, cfg)
+    if sampler == "simdram":
+        def pick(logits):
+            return simdram_greedy_token(logits, perf_stats=sampler_perf,
+                                        machine=machine).long()
+    elif sampler == "host":
+        def pick(logits):
+            return torch.argmax(logits, -1)
+    else:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    b, s = prompt.shape
+    max_seq = max_seq or (s + steps)
+    caches = init_caches(cfg, b, max_seq, device=model.device)
+    prefill = make_prefill(cfg)
+    step = make_serve_step(cfg)
+    batch = {"tokens": prompt}
+    if cfg.rope == "mrope":
+        batch["mrope_positions"] = torch.arange(
+            s, device=prompt.device)[None, :, None].expand(b, s, 3)
+    logits, caches = prefill(model, batch, caches)
+    out = [pick(logits[:, -1])]
+    for t in range(steps - 1):
+        db = {"tokens": out[-1][:, None]}
+        if cfg.rope == "mrope":
+            db["mrope_positions"] = torch.full((b, 1, 3), s + t,
+                                               device=prompt.device)
+        logits, caches = step(model, caches, db)
+        out.append(pick(logits[:, -1]))
+    return torch.stack(out, 1)

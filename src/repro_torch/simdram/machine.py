@@ -79,6 +79,7 @@ from ..core.backends import timed as _timed_execution
 from ..core.compiler import SliceSpec, compile_slice
 from ..core.graph import LogicGraph
 from ..core.trace import GLOBAL_TRACE_CACHE, TraceCache
+from ..device import resolve_device
 from .layout import (LANE_WORD, BitplaneArray, as_tensor,
                      register_movement_hook, register_transpose_hook)
 from .scheduler import BankScheduler, RequestTiming, ScheduleResult
@@ -98,17 +99,6 @@ def _scope_stack() -> list:
     if stack is None:
         stack = _SCOPE.stack = []
     return stack
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch device, refusing CUDA where there is none."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"SimdramMachine(device={str(device)!r}) needs a CUDA device, but "
-            "torch.cuda.is_available() is False; pass device='cpu' to run "
-            "on the CPU")
-    return dev
 
 
 def current_machine() -> "SimdramMachine | None":

@@ -36,13 +36,20 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(port_modules()) >= 45
+    assert len(port_modules()) >= 54
     # the serving slice: configs, server, sampler and launcher
     assert {"repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.serve", "repro_torch.serve.batching",
             "repro_torch.serve.server", "repro_torch.serve.decode",
             "repro_torch.launch", "repro_torch.launch.serve"} \
         <= set(port_modules())
+    # the LM serving slice: models, tools, reliability and the example
+    assert {"repro_torch.models", "repro_torch.models.params",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.tools", "repro_torch.tools.tracelint",
+            "repro_torch.simdram.reliability", "repro_torch.examples",
+            "repro_torch.examples.serve_decode",
+            "repro_torch.device"} <= set(port_modules())
 
 
 def test_port_sources_import_no_jax_and_no_repro():
@@ -73,12 +80,18 @@ def test_every_sliced_reference_module_has_a_counterpart():
                 "kernels/bitserial_matmul.py", "configs/__init__.py",
                 "configs/base.py", "serve/__init__.py", "serve/batching.py",
                 "serve/server.py", "serve/decode.py", "launch/__init__.py",
-                "launch/serve.py"):
+                "launch/serve.py", "simdram/reliability.py",
+                "tools/__init__.py", "tools/tracelint.py",
+                "models/__init__.py", "models/params.py",
+                "models/layers.py", "models/transformer.py"):
         assert (ref / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     # the applications example becomes a module of the port
     assert (PORT.parents[1] / "examples" / "simdram_apps.py").exists()
     assert (PORT / "apps.py").exists()
+    # and so does the serving example
+    assert (PORT.parents[1] / "examples" / "serve_decode.py").exists()
+    assert (PORT / "examples" / "serve_decode.py").exists()
     # every architecture config is copied
     for path in (ref / "configs").glob("*.py"):
         assert (PORT / "configs" / path.name).exists(), path.name

@@ -163,3 +163,44 @@ def test_cuda_machine_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         port_ops.SimdramMachine(device="cuda:0")
     assert port_ops.SimdramMachine(device="cpu").device == torch.device("cpu")
+
+
+# -- 32-bit signed compares (ROADMAP C.1) ------------------------------------
+
+SIGNED_OPS = {"greater": np.greater, "greater_equal": np.greater_equal,
+              "max": np.maximum, "min": np.minimum}
+
+
+def signed_extremes() -> tuple:
+    """Seeded int32 operands with the ±2³¹ extremes paired every way."""
+    lo, hi = -2**31, 2**31 - 1
+    rng = np.random.default_rng(31)
+    a = rng.integers(lo, hi + 1, 200, dtype=np.int64)
+    b = rng.integers(lo, hi + 1, 200, dtype=np.int64)
+    a[:9] = [lo, lo, lo, hi, hi, hi, 0, -1, lo + 1]
+    b[:9] = [lo, hi, 0, lo, hi, -1, lo, hi, lo]
+    return a, b
+
+
+@pytest.mark.parametrize("op", sorted(SIGNED_OPS))
+def test_signed_32bit_compares_match_numpy(op):
+    """``bbop_<op>(signed=True, n_bits=32)`` on the port's int32 tensors
+    equals numpy, extremes included.  The reference cannot be the oracle
+    here: on its int32 arrays, ``repro.ops.bbops._flip_msb`` computes
+    ``x ^ (1 << 31)``, which does not fit and raises ``OverflowError``.
+    On int64 operands both packages compute, and agree."""
+    a, b = signed_extremes()
+    want = SIGNED_OPS[op](a, b).astype(np.int64)
+    fn = getattr(port_ops, f"bbop_{op}")
+    with port_ops.SimdramMachine(device="cpu").session():
+        got = fn(torch.from_numpy(a.astype(np.int32)),
+                 torch.from_numpy(b.astype(np.int32)), 32, signed=True)
+        np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+        wide = fn(a, b, 32, signed=True)
+    np.testing.assert_array_equal(wide.numpy().astype(np.int64), want)
+    ref_fn = getattr(ref_ops, f"bbop_{op}")
+    with pytest.raises(OverflowError):
+        ref_fn(jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32), 32,
+               signed=True)
+    np.testing.assert_array_equal(
+        np.asarray(ref_fn(a, b, 32, signed=True)).astype(np.int64), want)
