@@ -60,6 +60,18 @@ Phases, each fatal on failure:
    is one cached step forward and its pick), launches a token, the
    sampler's modeled ns/nJ a token, the device's busy share and the torch
    ops the host issues a decode step;
+4f. the MoE serving path: checks (a) as in 4e at full width for
+   OLMoE-1B-7B and DeepSeek-V2-236B (2 layers each, capacity factor
+   ceil(E / k), so no token drops) and Mamba2-130m (24 layers); then
+   OLMoE-1B-7B at full width and depth (16 layers, d_model 2,048, 64
+   experts top-8, d_expert 1,024, vocab 50,304, bf16 compute, drawn in
+   place on the card from a seed) greedily decodes 32 tokens for 16
+   sequences after a 128-token prompt with each sampler, timed as in 4e,
+   checks (b) and (c); (d) the reduced config of each of OLMoE,
+   DeepSeek-V2, Mamba2, Zamba2 and Whisper (primed from its encoder
+   frames) on the card == the CPU within the bf16 tolerance, MoE routes
+   first; prints the peak memory allocated, launches a token, the
+   sampler's modeled ns/nJ a token and the device's busy share;
 5. (run before 4e, printed after it) kernel times with CUDA events and
    the profiler (a trace that lost kernel events against the launch
    counter is taken again) beside the plain versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
@@ -87,7 +99,7 @@ An earlier source comes from git, e.g.
 ``git show 9a3d5b9:src/repro_torch/kernels/csrc/uprog_executor.cu``, into
 a git-ignored directory such as ``build/ab_old/``.
 
-Phases 4, 4b, 4c, 4d and 4e each set every kernel's launch counter to 0
+Phases 4, 4b, 4c, 4d, 4e and 4f each set every kernel's launch counter to 0
 before the path and fail if a kernel of that path did not launch.  Every
 comparison of integers is exact; float logits are compared within the
 stated tolerances.  The last line is the
@@ -142,6 +154,15 @@ LM_BATCH, LM_PROMPT, LM_NEW = 16, 128, 32
 LM_CHECK_LAYERS, LM_CHECK_STEPS = 2, 12
 LM_REPEATS = 3                  # warm timings of the prefill and each sampler
 LM_SELF_ABS, LM_BF16_REL = 2e-3, 5e-2     # the CPU tests' tolerances
+# phase 4f: OLMoE-1B-7B at full width and depth, 4e's shape; checks (a)
+# at full width, (arch, layers) with None the full depth; check (d) on
+# the reduced config of every family 4f brings
+MOE_ARCH = "olmoe-1b-7b"
+MOE_REPEATS = 3
+MOE_CHECKS = (("olmoe-1b-7b", 2), ("deepseek-v2-236b", 2),
+              ("mamba2-130m", None))
+REDUCED_FAMILIES = ("olmoe-1b-7b", "deepseek-v2-236b", "mamba2-130m",
+                    "zamba2-7b", "whisper-large-v3")
 # kernel → largest |kernel − plain version| seen in phases 2, 3 and 2b
 MAX_ABS_ERR: dict[str, int] = {}
 
@@ -607,14 +628,13 @@ def sampler_path(device, logits) -> dict:
 
 def lm_model(cfg, device, seed: int):
     """The port's Transformer for ``cfg`` on ``device``, its parameters drawn
-    by ``init_params`` from a seeded generator on ``device``."""
+    in place from a seeded generator on ``device`` (one copy of the
+    parameters on the card, never the stacked tree beside the module)."""
     import torch
 
-    from repro_torch.models.params import init_params
-    from repro_torch.models.transformer import Transformer, model_defs
+    from repro_torch.models.transformer import Transformer
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = init_params(model_defs(cfg), gen, device=device)
-    return Transformer(cfg, device=device).load_params(params)
+    return Transformer(cfg, device=device).draw_params(gen)
 
 
 def lm_tokens(cfg, shape: tuple, seed: int, device):
@@ -625,21 +645,33 @@ def lm_tokens(cfg, shape: tuple, seed: int, device):
                            device=device)
 
 
-def lm_decode_matches_prefill(device) -> float:
-    """Check (a): at full width in float32 compute and 2 layers, the logits
-    of 12 one-token cached steps equal a no-cache forward within 2e-3 (the
-    CPU tests' bound).  Returns the largest difference."""
+def decode_matches_prefill(device, arch: str, n_layers: int | None,
+                           seed: int) -> float:
+    """Check (a): at full width in float32 compute (``n_layers`` layers, or
+    the full depth with None), the logits of ``LM_CHECK_STEPS`` one-token
+    cached steps of 2 sequences equal a no-cache forward within 2e-3 (the
+    CPU tests' bound), TF32 off.  An MoE runs at capacity factor
+    ceil(E / k) (8.0 for OLMoE), where no group drops a token, so one-token
+    groups route as the whole sequence does.  Returns the largest
+    difference."""
     import dataclasses
+    import math
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_caches
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_CHECK_LAYERS,
-                              compute_dtype="float32")
-    model = lm_model(cfg, device, SEED + 7)
+    _check(not torch.backends.cuda.matmul.allow_tf32,
+           "TF32 matmul is on; the float32 checks need it off")
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(
+            math.ceil(cfg.n_experts / cfg.experts_per_tok)))
+    model = lm_model(cfg, device, seed)
     b, s = 2, LM_CHECK_STEPS
-    toks = lm_tokens(cfg, (b, s), SEED + 8, device)
+    toks = lm_tokens(cfg, (b, s), seed + 1, device)
     with torch.no_grad():
         full = model({"tokens": toks})[0]
     caches = init_caches(cfg, b, s, dtype=torch.float32, device=device)
@@ -648,8 +680,10 @@ def lm_decode_matches_prefill(device) -> float:
         logits, _, caches = model({"tokens": toks[:, t:t + 1]}, caches)
         outs.append(logits)
     err = float((torch.cat(outs, 1) - full).abs().max())
-    _check(err < LM_SELF_ABS, f"cached decode differs from the no-cache "
-           f"forward by {err} at full width (limit {LM_SELF_ABS})")
+    _check(err < LM_SELF_ABS, f"{cfg.name}: cached decode differs from the "
+           f"no-cache forward by {err} at full width (limit {LM_SELF_ABS})")
+    del model, caches
+    torch.cuda.empty_cache()
     return err
 
 
@@ -741,44 +775,181 @@ def lm_replay_checks(model, cfg, prompt, tokens, unrolled) -> None:
                                       {"tokens": tokens[:, t:t + 1]})
 
 
-def lm_reduced_matches_cpu(device) -> tuple:
-    """Check (d): the reduced qwen1.5-0.5b (bf16 compute) on the card and on
-    the CPU with the same parameters, without and through the KV cache:
-    logits within 5e-2 × max|CPU logit|, greedy ids equal wherever the
-    CPU's top-2 gap exceeds that.  Returns (largest error, tolerance)."""
+def lm_serve(model, cfg, prompt, wrappers: dict, repeats: int,
+             device) -> dict:
+    """The serving runs of phases 4e and 4f on ``model``: a cold decode with
+    each sampler (the in-DRAM one with every launch counter set to 0
+    before it, and a ``PerfStats``), ``repeats`` warm decodes of both in
+    turns, then checks (b) and (c).  Returns the tokens, launch counts,
+    ``PerfStats`` and timings."""
+    import torch
+
+    from repro_torch.ops import PerfStats, SimdramMachine
+    res = {}
+    res["host_tokens"], res["host_cold_s"] = lm_generate(model, cfg, prompt,
+                                                         "host")[:2]
+    machine = SimdramMachine(device=device, banks=LM_BATCH)
+    perf = PerfStats()
+    for w in wrappers.values():
+        w.launches = 0
+    tokens, res["simdram_cold_s"] = lm_generate(model, cfg, prompt,
+                                                "simdram", machine, perf)[:2]
+    res["launches"] = {name: w.launches for name, w in wrappers.items()}
+    _check(tokens.shape == (LM_BATCH, LM_NEW)
+           and tokens.device.type == torch.device(device).type
+           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+           f"sampled token ids {tuple(tokens.shape)} on {tokens.device}")
+    # a (greater, if_else, if_else) triple per halving round and SWAR
+    # stride: 3 · log2(lanes) μPrograms a token
+    programs = 3 * (1 << (cfg.vocab - 1).bit_length()).bit_length() - 3
+    _check(perf.n_programs == programs * LM_NEW
+           and perf.n_transposes == 3 * LM_NEW,
+           f"{perf.n_programs} μPrograms and {perf.n_transposes} "
+           f"transposition passes for {LM_NEW} tokens, expected {programs} "
+           "and 3 a token")
+    res["perf"] = perf
+    # warm runs of both samplers in turns (the host's speed drifts)
+    # (host seconds, prefill ms, ms a decoded token) per run
+    res["host_runs"], res["simdram_runs"] = [], []
+    for _ in range(repeats):
+        res["host_runs"].append(lm_generate(model, cfg, prompt, "host")[1:])
+        again, *run = lm_generate(model, cfg, prompt, "simdram", machine)
+        res["simdram_runs"].append(run)
+        _check(torch.equal(again, tokens), "a second simdram decode picked "
+               "other tokens")
+    res["agree"] = float((tokens == res["host_tokens"]).float().mean())
+    lm_replay_checks(model, cfg, prompt, tokens,
+                     SimdramMachine(device=device, banks=LM_BATCH,
+                                    backend="unrolled"))
+    res["machine"] = machine
+    return res
+
+
+def print_lm_serve(phase: str, lm: dict, cfg) -> None:
+    """Print the timings, launches and modeled sampler cost of
+    :func:`lm_serve`'s runs."""
+    perf, launches = lm["perf"], lm["launches"]
+    for name in ("host", "simdram"):
+        runs = lm[f"{name}_runs"]
+        mid = [sorted(col)[len(col) // 2] for col in zip(*runs)]
+        print(f"phase {phase}: greedy_decode, {name} sampler, {len(runs)} "
+              f"warm runs (cold {lm[f'{name}_cold_s']:.4f} s): "
+              f"{' '.join(f'{r[0]:.4f}' for r in runs)} s of host wall time; "
+              f"prefill {' '.join(f'{r[1]:.3f}' for r in runs)} ms; "
+              f"{' '.join(f'{r[2]:.3f}' for r in runs)} ms a decoded token "
+              f"(one cached step forward and its pick, tokens 2-{LM_NEW}, "
+              f"CUDA events in the same run); medians {mid[1]:.3f} ms "
+              f"prefill, {mid[2]:.3f} ms a token")
+    per_token = {name: n / LM_NEW for name, n in launches.items()}
+    print(f"phase {phase}: launches of the simdram run {launches}, a token "
+          f"{per_token}")
+    print(f"phase {phase}: sampler modeled {perf.total_ns / LM_NEW:.1f} ns "
+          f"and {perf.total_nj / LM_NEW:.1f} nJ of DRAM a token "
+          f"({perf.n_programs // LM_NEW} μPrograms, "
+          f"{perf.n_transposes // LM_NEW} transposition passes, "
+          f"{perf.max_banks} banks)")
+    print(f"phase {phase} (b, c): every sampled token is a maximal quantized "
+          f"logit and equals the unrolled backend's pick; ids equal the "
+          f"host sampler's on {100 * lm['agree']:.2f}% of tokens")
+
+
+def reduced_inputs(cfg, b: int, s: int, seed: int) -> dict:
+    """Seeded tokens (and, enc-dec, encoder frames) on the CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)))}
+    if cfg.enc_dec:
+        batch["encoder_frames"] = torch.as_tensor(
+            rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)) * 0.1,
+            dtype=torch.float32)
+    return batch
+
+
+def moe_routes(model, cfg, x):
+    """Layer 0's top-k expert sets of the FFN input ``x`` (sorted)."""
+    import torch
+    with torch.no_grad():
+        idx = model.blocks[0].ffn.route(x.reshape(1, -1, cfg.d_model))[2]
+    return idx.sort(-1).values.cpu()
+
+
+def reduced_matches_cpu(device, arch: str) -> tuple:
+    """Check (d): ``arch``'s reduced config (bf16 compute) on the card and on
+    the CPU with the same parameters, without and through the caches
+    (whisper's primed from its encoder frames by ``prime_encdec_caches``,
+    as ``greedy_decode``'s ``extra_batch`` primes them): logits within
+    5e-2 × max|CPU logit|, greedy ids equal wherever the CPU's top-2 gap
+    exceeds that.  An MoE's layer-0 routes of the CPU's FFN input are
+    compared first, on both devices.  Whisper also decodes 4 tokens
+    through ``greedy_decode(extra_batch=...)`` on both; its first token
+    must agree where the primed logits' gap is clear.  Returns (largest
+    error, tolerance)."""
     import torch
 
     from repro_torch.configs import get_reduced
     from repro_torch.models.params import init_params, tree_map
     from repro_torch.models.transformer import (Transformer, init_caches,
-                                                model_defs)
-    cfg = get_reduced(LM_ARCH)
+                                                model_defs,
+                                                prime_encdec_caches)
+    from repro_torch.serve.decode import greedy_decode
+    cfg = get_reduced(arch)
     params = init_params(model_defs(cfg), torch.Generator().manual_seed(SEED),
                          device="cpu")
-    toks = lm_tokens(cfg, (4, 12), SEED + 9, "cpu")
+    batch = reduced_inputs(cfg, 4, 12, SEED + 9)
+    models = {dev: Transformer(cfg, device=dev).load_params(
+        tree_map(lambda t, d=dev: t.to(d), params)) for dev in ("cpu", device)}
+    if cfg.moe:
+        seen = []
+        hook = models["cpu"].blocks[0].ffn.register_forward_hook(
+            lambda mod, args, out: seen.append(args[0]))
+        with torch.no_grad():
+            models["cpu"](batch)
+        hook.remove()
+        want = moe_routes(models["cpu"], cfg, seen[0])
+        got = moe_routes(models[device], cfg, seen[0].to(device))
+        _check(torch.equal(got, want), f"reduced {arch}: MoE routes on the "
+               f"card differ from the CPU's on {int((got != want).any(-1).sum())}"
+               " tokens")
     worst = (0.0, 0.0)
     for cached in (False, True):
         out = {}
-        for dev in ("cpu", device):
-            model = Transformer(cfg, device=dev).load_params(
-                tree_map(lambda t, d=dev: t.to(d), params))
-            caches = init_caches(cfg, 4, 16, device=dev) if cached else None
+        for dev, model in models.items():
+            b = tree_map(lambda t, d=dev: t.to(d), batch)
+            caches = None
+            if cached:
+                caches = init_caches(cfg, 4, 16, device=dev)
+                if cfg.enc_dec:
+                    caches = prime_encdec_caches(
+                        model, cfg, {"encoder_frames": b["encoder_frames"]},
+                        caches)
             with torch.no_grad():
-                logits = model({"tokens": toks.to(dev)}, caches)[0]
+                logits = model(b, caches)[0]
             _check(logits.device.type == torch.device(dev).type,
                    f"logits on {logits.device}, expected {dev}")
             out[dev] = logits.cpu()
         want, got = out["cpu"], out[device]
         tol = LM_BF16_REL * float(want.abs().max())
         err = float((got - want).abs().max())
-        _check(err <= tol, f"reduced {LM_ARCH} on the card differs from the "
+        _check(err <= tol, f"reduced {arch} on the card differs from the "
                f"CPU by {err} (limit {tol}, cached={cached})")
         top2 = want.topk(2, -1).values
         clear = (top2[..., 0] - top2[..., 1]) > tol
         _check(bool(clear.any()) and torch.equal(
             got.argmax(-1)[clear], want.argmax(-1)[clear]),
-            f"greedy ids on the card differ from the CPU's (cached={cached})")
+            f"{arch}: greedy ids on the card differ from the CPU's "
+            f"(cached={cached})")
         worst = max(worst, (err, tol))
+    if cfg.enc_dec:
+        ids = {dev: greedy_decode(
+            model, cfg, batch["tokens"].to(dev), steps=4,
+            extra_batch={"encoder_frames": batch["encoder_frames"].to(dev)}
+            ).cpu() for dev, model in models.items()}
+        first = clear[:, -1]
+        _check(torch.equal(ids[device][first, 0], ids["cpu"][first, 0])
+               and torch.equal(ids["cpu"][:, 0], want[:, -1].argmax(-1)),
+               f"{arch}: greedy_decode with extra_batch picks another first "
+               "token on the card")
     return worst
 
 
@@ -803,55 +974,54 @@ def lm_serving_path(device, wrappers: dict) -> dict:
     """Phase 4e: greedy decoding of Qwen1.5-0.5B at full width on the card,
     each token picked by the in-DRAM sampler; checks (a)–(e).  Returns the
     launch counts of the simdram run and the numbers to print."""
+    from repro_torch.configs import get_config
+    decode_err = decode_matches_prefill(device, LM_ARCH, LM_CHECK_LAYERS,
+                                        SEED + 7)
+    cfg = get_config(LM_ARCH)
+    model = lm_model(cfg, device, SEED + 10)
+    prompt = lm_tokens(cfg, (LM_BATCH, LM_PROMPT), SEED + 11, device)
+    x = lm_gate_input(model, cfg, prompt)
+    res = lm_serve(model, cfg, prompt, wrappers, LM_REPEATS, device)
+    res["decode_err"] = decode_err
+    res["params"] = sum(p.numel() for p in model.parameters())
+    res["reduced_err"] = reduced_matches_cpu(device, LM_ARCH)
+    lm_pum_gate_check(x, model.blocks[0].ffn.w_gate.detach())
+    res["model"], res["cfg"], res["prompt"] = model, cfg, prompt
+    return res
+
+
+# -- phase 4f ----------------------------------------------------------------
+
+def moe_serving_path(device, wrappers: dict) -> dict:
+    """Phase 4f: checks (a) for OLMoE and DeepSeek-V2 (full width, 2 layers)
+    and Mamba2-130m (full width and depth); then OLMoE-1B-7B at full width
+    and depth serves 16 × 32 tokens through ``greedy_decode`` with each
+    sampler (checks (b), (c)); then check (d) on the reduced config of
+    each new family.  Returns the numbers to print."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.ops import PerfStats, SimdramMachine
-    res = {"decode_err": lm_decode_matches_prefill(device)}
-    cfg = get_config(LM_ARCH)
-    model = lm_model(cfg, device, SEED + 10)
+    t0 = time.perf_counter()
+    res = {"decode_err": {}}
+    for i, (arch, layers) in enumerate(MOE_CHECKS):
+        torch.cuda.reset_peak_memory_stats()
+        res["decode_err"][arch] = (decode_matches_prefill(
+            device, arch, layers, SEED + 30 + 2 * i),
+            torch.cuda.max_memory_allocated())
+    cfg = get_config(MOE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(cfg, device, SEED + 20)
+    _sync(device)
+    res["build_peak"] = torch.cuda.max_memory_allocated()
     res["params"] = sum(p.numel() for p in model.parameters())
-    prompt = lm_tokens(cfg, (LM_BATCH, LM_PROMPT), SEED + 11, device)
-    res["host_tokens"], res["host_cold_s"] = lm_generate(model, cfg, prompt,
-                                                         "host")[:2]
-    x = lm_gate_input(model, cfg, prompt)
-    machine = SimdramMachine(device=device, banks=LM_BATCH)
-    perf = PerfStats()
-    for w in wrappers.values():
-        w.launches = 0
-    tokens, res["simdram_cold_s"] = lm_generate(model, cfg, prompt,
-                                                "simdram", machine, perf)[:2]
-    res["launches"] = {name: w.launches for name, w in wrappers.items()}
-    _check(tokens.shape == (LM_BATCH, LM_NEW)
-           and tokens.device.type == torch.device(device).type
-           and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
-           f"sampled token ids {tuple(tokens.shape)} on {tokens.device}")
-    # a (greater, if_else, if_else) triple per halving round and SWAR
-    # stride: 3 · log2(lanes) μPrograms a token (54 at 262,144 lanes)
-    programs = 3 * (1 << (cfg.vocab - 1).bit_length()).bit_length() - 3
-    _check(perf.n_programs == programs * LM_NEW
-           and perf.n_transposes == 3 * LM_NEW,
-           f"{perf.n_programs} μPrograms and {perf.n_transposes} "
-           f"transposition passes for {LM_NEW} tokens, expected {programs} "
-           "and 3 a token")
-    res["perf"] = perf
-    # warm runs of both samplers in turns (the host's speed drifts)
-    # (host seconds, prefill ms, ms a decoded token) per run
-    res["host_runs"], res["simdram_runs"] = [], []
-    for _ in range(LM_REPEATS):
-        res["host_runs"].append(lm_generate(model, cfg, prompt, "host")[1:])
-        again, *run = lm_generate(model, cfg, prompt, "simdram", machine)
-        res["simdram_runs"].append(run)
-        _check(torch.equal(again, tokens), "a second simdram decode picked "
-               "other tokens")
-    res["agree"] = float((tokens == res["host_tokens"]).float().mean())
-    lm_replay_checks(model, cfg, prompt, tokens,
-                     SimdramMachine(device=device, banks=LM_BATCH,
-                                    backend="unrolled"))
-    res["reduced_err"] = lm_reduced_matches_cpu(device)
-    lm_pum_gate_check(x, model.blocks[0].ffn.w_gate.detach())
+    prompt = lm_tokens(cfg, (LM_BATCH, LM_PROMPT), SEED + 21, device)
+    res.update(lm_serve(model, cfg, prompt, wrappers, MOE_REPEATS, device))
+    res["serve_peak"] = torch.cuda.max_memory_allocated()
+    res["reduced_err"] = {arch: reduced_matches_cpu(device, arch)
+                          for arch in REDUCED_FAMILIES}
     res["model"], res["cfg"], res["prompt"] = model, cfg, prompt
-    res["machine"] = machine
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1411,8 +1581,7 @@ def main() -> int:
         device, app_launches["unrolled"]["bitserial_matmul"], popc_per_s)
 
     lm = lm_serving_path(device, wrappers)
-    lm_launches, perf, cfg = lm["launches"], lm["perf"], lm["cfg"]
-    per_token = {name: n / LM_NEW for name, n in lm_launches.items()}
+    lm_launches, cfg = lm["launches"], lm["cfg"]
     print(f"phase 4e: {cfg.name} at full width ({lm['params']:,} "
           f"parameters, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
@@ -1422,27 +1591,7 @@ def main() -> int:
           f"{LM_CHECK_LAYERS} layers, float32, {LM_CHECK_STEPS} steps: max "
           f"|diff| {lm['decode_err']:.3e} (limit {LM_SELF_ABS}; TF32 matmul "
           f"{torch.backends.cuda.matmul.allow_tf32})")
-    for name in ("host", "simdram"):
-        runs = lm[f"{name}_runs"]
-        mid = [sorted(col)[len(col) // 2] for col in zip(*runs)]
-        print(f"phase 4e: greedy_decode, {name} sampler, {LM_REPEATS} warm "
-              f"runs (cold {lm[f'{name}_cold_s']:.4f} s): "
-              f"{' '.join(f'{r[0]:.4f}' for r in runs)} s of host wall time; "
-              f"prefill {' '.join(f'{r[1]:.3f}' for r in runs)} ms; "
-              f"{' '.join(f'{r[2]:.3f}' for r in runs)} ms a decoded token "
-              f"(one cached step forward and its pick, tokens 2-{LM_NEW}, "
-              f"CUDA events in the same run); medians {mid[1]:.3f} ms "
-              f"prefill, {mid[2]:.3f} ms a token")
-    print(f"phase 4e: launches of the simdram run {lm_launches}, a token "
-          f"{per_token}")
-    print(f"phase 4e: sampler modeled {perf.total_ns / LM_NEW:.1f} ns and "
-          f"{perf.total_nj / LM_NEW:.1f} nJ of DRAM a token "
-          f"({perf.n_programs // LM_NEW} μPrograms, "
-          f"{perf.n_transposes // LM_NEW} transposition passes, "
-          f"{perf.max_banks} banks)")
-    print(f"phase 4e (b, c): every sampled token is a maximal quantized "
-          f"logit and equals the unrolled backend's pick; ids equal the "
-          f"host sampler's on {100 * lm['agree']:.2f}% of tokens")
+    print_lm_serve("4e", lm, cfg)
     print(f"phase 4e (d): reduced {LM_ARCH} on the card vs the CPU: max "
           f"|diff| {lm['reduced_err'][0]:.4e} (limit "
           f"{lm['reduced_err'][1]:.4e}); greedy ids equal where the top-2 "
@@ -1464,10 +1613,42 @@ def main() -> int:
     del lm
     torch.cuda.empty_cache()
 
+    moe = moe_serving_path(device, wrappers)
+    moe_launches, cfg = moe["launches"], moe["cfg"]
+    for arch, (err, peak) in moe["decode_err"].items():
+        print(f"phase 4f (a): {arch} cached decode == no-cache forward at "
+              f"full width, {dict(MOE_CHECKS)[arch] or 'all'} layers, "
+              f"float32, {LM_CHECK_STEPS} steps: max |diff| {err:.3e} "
+              f"(limit {LM_SELF_ABS}; peak {peak / 2**30:.2f} GiB allocated)")
+    print(f"phase 4f: {cfg.name} at full width and depth "
+          f"({moe['params']:,} parameters, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_experts} experts "
+          f"top-{cfg.experts_per_tok}, d_expert {cfg.d_expert}, vocab "
+          f"{cfg.vocab}, {cfg.compute_dtype} compute), {LM_BATCH} sequences "
+          f"x {LM_PROMPT}-token prompt + {LM_NEW} new tokens; peak "
+          f"{moe['build_peak'] / 2**30:.2f} GiB allocated after the build, "
+          f"{moe['serve_peak'] / 2**30:.2f} GiB through the decodes")
+    print_lm_serve("4f", moe, cfg)
+    for arch, (err, tol) in moe["reduced_err"].items():
+        print(f"phase 4f (d): reduced {arch} on the card vs the CPU: max "
+              f"|diff| {err:.4e} (limit {tol:.4e})")
+    idle = [name for name in main_kernels if moe_launches[name] == 0]
+    _check(not idle, f"kernels not launched on the MoE serving path: {idle}")
+    device_breakdown("MoE serving, simdram sampler (one warm decode)",
+                     lambda: lm_generate(moe["model"], cfg, moe["prompt"],
+                                         "simdram", moe["machine"])[1])
+    device_breakdown("MoE serving, host sampler (one warm decode)",
+                     lambda: lm_generate(moe["model"], cfg, moe["prompt"],
+                                         "host")[1])
+    print(f"phase 4f: {moe['seconds']:.1f} s before the profiled decodes")
+    del moe
+    torch.cuda.empty_cache()
+
     by_path = {"main": launches, "applications/unrolled":
                app_launches["unrolled"], "applications/kernel":
                app_launches["kernel"], "serving": serve_launches,
-               "sampler": sampler_launches, "lm_serving": lm_launches}
+               "sampler": sampler_launches, "lm_serving": lm_launches,
+               "lm_moe": moe_launches}
     for row in kernels:
         wrapper = row["name"].split("/")[0]
         row["launches_by_path"] = {path: counts.get(wrapper, 0)

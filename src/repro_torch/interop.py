@@ -30,8 +30,11 @@ def params_from_reference(cfg, tree, device: str | torch.device = "cuda"):
     """The reference's parameter tree as numpy arrays (for example
     ``jax.tree.map(np.asarray, params)``) → a
     :class:`~repro_torch.models.transformer.Transformer` on ``device`` that
-    holds the same values: stacked ``blocks`` unstacked along the layer
-    axis, no ``lm_head`` where the embeddings are tied."""
+    holds the same values, for every family: the stacked ``blocks`` (with
+    the enc-dec decoder's ``xattn`` and MoE's ``ffn.shared``),
+    ``ssm_blocks`` and ``enc_blocks`` unstacked along the layer axis, the
+    hybrid's weight-tied ``shared_attn`` kept as one block, no ``lm_head``
+    where the embeddings are tied."""
     from .models.params import tree_map
     from .models.transformer import Transformer
     tensors = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)

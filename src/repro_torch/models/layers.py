@@ -1,12 +1,13 @@
-"""Dense layers on ``torch``: RMSNorm, RoPE/M-RoPE, GQA attention with a
-plain, an online-softmax (flash) and a cached decode path, the int8 KV
-cache, and the SwiGLU MLP with its binarized (PuM) variant.
+"""Layers on ``torch``: RMSNorm, RoPE/M-RoPE, GQA attention with a plain,
+an online-softmax (flash) and a cached decode path, the int8 KV cache, MLA
+(DeepSeek-V2 latent attention), the SwiGLU MLP with its binarized (PuM)
+variant, the top-k MoE, and the Mamba2/SSD mixer.
 
 Conventions (the reference's, :mod:`repro.models.layers`)
 ---------------------------------------------------------
 * every layer has ``<layer>_defs(cfg) → ParamDef tree``; its module
-  (:class:`RMSNorm`, :class:`Attention`, :class:`MLP`, :class:`PumMLP`)
-  holds parameters of those names and shapes, so a reference parameter
+  (:class:`RMSNorm`, :class:`Attention`, :class:`MLAttention`,
+  :class:`MLP`, :class:`PumMLP`, :class:`MoE`, :class:`SSMMixer`) holds parameters of those names and shapes, so a reference parameter
   tree loads into it leaf for leaf;
 * parameters are stored float32 and cast to ``cfg.compute_dtype`` at each
   use; every cast, upcast and rounding happens in the reference's order,
@@ -19,7 +20,8 @@ Conventions (the reference's, :mod:`repro.models.layers`)
   query's own position.
 
 None of these is a Pallas kernel in the reference: they are ``jnp``
-einsums and a blockwise ``lax.scan``, and stay plain ``torch`` here.
+einsums and blockwise ``lax.scan``s (flash attention, the SSD scan), and
+stay plain ``torch`` here, the scans as Python loops.
 """
 from __future__ import annotations
 
@@ -298,7 +300,97 @@ class Attention(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# MLPs (SwiGLU) — dense and the PuM (bit-serial) variant
+# MLA — multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def mla_defs(cfg: ModelConfig):
+    d, hd, nh = cfg.d_model, cfg.hd, cfg.n_heads
+    r, rq, rh = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_head_dim
+    defs = {
+        "w_dkv": P((d, r + rh), ("embed", "lora")),        # joint kv + rope-k
+        "w_uk": P((r, nh, hd), ("lora", "heads", None)),
+        "w_uv": P((r, nh, hd), ("lora", "heads", None)),
+        "wo": P((nh, hd, d), ("heads", None, "embed")),
+    }
+    if rq:
+        defs["w_dq"] = P((d, rq), ("embed", "lora"))
+        defs["w_uq"] = P((rq, nh, hd + rh), ("lora", "heads", None))
+    else:
+        defs["w_q"] = P((d, nh, hd + rh), ("embed", "heads", None))
+    return defs
+
+
+class MLAttention(nn.Module):
+    """Latent attention with the reference's parameter names; cached decode
+    keeps only the compressed kv latent ``c`` and the RoPE key
+    ``k_rope``."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        for name, d in mla_defs(cfg).items():
+            self.register_parameter(name, _param(d, device))
+
+    def forward(self, x, positions, cache=None):
+        """Returns ``(y, new_cache)``; ``cache`` = dict(c, k_rope, pos), one
+        layer's (scored against the latent directly: the absorbed
+        decode)."""
+        cfg = self.cfg
+        dt = _dt(cfg)
+        r, rh, hd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.hd
+        ckv = torch.einsum("bsd,dr->bsr", x, self.w_dkv.to(dt))
+        c, k_rope = ckv[..., :r], ckv[..., r:]
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+        if cfg.q_lora_rank:
+            q = torch.einsum("bsd,dr->bsr", x, self.w_dq.to(dt))
+            q = torch.einsum("bsr,rhk->bshk", q, self.w_uq.to(dt))
+        else:
+            q = torch.einsum("bsd,dhk->bshk", x, self.w_q.to(dt))
+        q_nope, q_rope = q[..., :hd], q[..., hd:]
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        scale = 1.0 / math.sqrt(hd + rh)
+        s = x.shape[1]
+        if cache is None:
+            k_nope = torch.einsum("bsr,rhk->bshk", c, self.w_uk.to(dt))
+            v = torch.einsum("bsr,rhk->bshk", c, self.w_uv.to(dt))
+            if s > FLASH_THRESHOLD:
+                # the nope/rope score components as one head dim, through
+                # the online-softmax path (long prefill)
+                q_cat = torch.cat([q_nope, q_rope], -1)
+                k_cat = torch.cat([k_nope, k_rope.expand(
+                    *k_nope.shape[:-1], rh)], -1)
+                y = _flash_attn(q_cat, k_cat, v, causal=True)
+            else:
+                scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+                          + torch.einsum("bshk,btzk->bhst", q_rope, k_rope)
+                          ) * scale
+                ar = torch.arange(s, device=x.device)
+                scores = torch.where(ar[:, None] >= ar[None, :],
+                                     scores.float(), -1e30)
+                w = torch.softmax(scores, -1).to(dt)
+                y = torch.einsum("bhst,bthk->bshk", w, v)
+            new_cache = None
+        else:
+            p = cache["pos"]
+            cc = _write(cache["c"], c, p)
+            cr = _write(cache["k_rope"], k_rope[:, :, 0, :], p)
+            q_abs = torch.einsum("bshk,rhk->bshr", q_nope, self.w_uk.to(dt))
+            scores = (torch.einsum("bshr,btr->bhst", q_abs, cc.to(dt))
+                      + torch.einsum("bshk,btk->bhst", q_rope, cr.to(dt))
+                      ) * scale
+            qpos = torch.arange(s, device=x.device)[:, None] + p
+            kpos = torch.arange(cc.shape[1], device=x.device)[None, :]
+            scores = torch.where(kpos <= qpos, scores.float(), -1e30)
+            w = torch.softmax(scores, -1).to(dt)
+            y_lat = torch.einsum("bhst,btr->bshr", w, cc.to(dt))
+            y = torch.einsum("bshr,rhk->bshk", y_lat, self.w_uv.to(dt))
+            new_cache = {"c": cc, "k_rope": cr, "pos": p + s}
+        y = torch.einsum("bshk,hkd->bsd", y, self.wo.to(dt))
+        return y, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs (SwiGLU) — dense, the PuM (bit-serial) variant and MoE
 # ---------------------------------------------------------------------------
 
 def mlp_defs(cfg: ModelConfig, d_ff: int | None = None):
@@ -309,10 +401,11 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 d_ff: int | None = None):
         super().__init__()
         self.cfg = cfg
-        for name, d in mlp_defs(cfg).items():
+        for name, d in mlp_defs(cfg, d_ff).items():
             self.register_parameter(name, _param(d, device))
 
     def forward(self, x):
@@ -357,3 +450,239 @@ class PumMLP(MLP):
         u = torch.einsum("bsd,df->bsf", xb, sign_ste(self.w_up).to(dt))
         h = F.silu(g * scale) * (u * scale)
         return torch.einsum("bsf,fd->bsd", h, self.w_down.to(dt))
+
+
+def moe_defs(cfg: ModelConfig):
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_expert
+    defs = {
+        "router": P((d, e), ("embed", None)),
+        "w_gate": P((e, d, f), ("experts", "embed", None)),
+        "w_up": P((e, d, f), ("experts", "embed", None)),
+        "w_down": P((e, f, d), ("experts", None, "embed")),
+    }
+    if cfg.n_shared_experts:
+        defs["shared"] = mlp_defs(cfg, cfg.d_expert * cfg.n_shared_experts)
+    return defs
+
+
+MOE_GROUP = 256        # tokens per routing group (bounds dispatch memory)
+
+
+class MoE(nn.Module):
+    """Top-k capacity-based MoE with the reference's dispatch/combine
+    einsums: tokens route in groups of ``MOE_GROUP`` (halved until it
+    divides the token count), each expert takes at most ``capacity`` of a
+    group's tokens in token order, and the rest drop.  ``shared`` (with
+    ``n_shared_experts``) is a dense :class:`MLP` added to every token."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        for name, d in moe_defs(cfg).items():
+            if name != "shared":
+                self.register_parameter(name, _param(d, device))
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, device,
+                              cfg.d_expert * cfg.n_shared_experts)
+
+    def route(self, tokens):
+        """Router of ``tokens (G, S, d)``: softmax probabilities (G, S, E)
+        and the top-k experts (G, S, k) with their renormalised gates.
+        ``torch.topk`` may order equal probabilities otherwise than
+        ``lax.top_k``; only the chosen set reaches the output."""
+        logits = torch.einsum("gtd,de->gte", tokens.float(),
+                              self.router.float())
+        probs = torch.softmax(logits, -1)
+        gate_vals, gate_idx = torch.topk(probs, self.cfg.experts_per_tok)
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+        return probs, gate_vals, gate_idx
+
+    def forward(self, x):
+        """Returns ``(out, aux)``: the output and the load-balance loss."""
+        cfg = self.cfg
+        dt = _dt(cfg)
+        b, s, d = x.shape
+        e, k = cfg.n_experts, cfg.experts_per_tok
+        t_total = b * s
+        gs = min(MOE_GROUP, t_total)
+        while t_total % gs:
+            gs //= 2
+        ng = t_total // gs
+        tokens = x.reshape(ng, gs, d)
+        probs, gate_vals, gate_idx = self.route(tokens)
+        capacity = max(1, int(cfg.capacity_factor * gs * k / e))
+        onehot = F.one_hot(gate_idx, e).float()                 # (G, S, k, E)
+        assign = onehot.sum(2)                                  # (G, S, E)
+        pos = torch.cumsum(assign, 1) - assign                  # slot per (G,S,E)
+        within = (pos < capacity) * assign
+        # jax.nn.one_hot's zero row where pos ≥ capacity
+        slots = torch.arange(capacity, dtype=pos.dtype, device=x.device)
+        dispatch = within[..., None] * (pos[..., None] == slots).float()
+        combine = torch.einsum("gske,gsk->gse", onehot, gate_vals)
+        combine = combine[..., None] * dispatch                 # (G, S, E, C)
+        xs = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), tokens)
+        g = torch.einsum("gecd,edf->gecf", xs, self.w_gate.to(dt))
+        u = torch.einsum("gecd,edf->gecf", xs, self.w_up.to(dt))
+        ys = torch.einsum("gecf,efd->gecd", F.silu(g) * u,
+                          self.w_down.to(dt))
+        out = torch.einsum("gsec,gecd->gsd", combine.to(dt), ys)
+        if cfg.n_shared_experts:
+            out = out.reshape(b, s, d) + self.shared(x)
+        # auxiliary load-balance loss
+        me = probs.mean((0, 1))
+        ce = assign.mean((0, 1)) / k
+        aux = e * torch.sum(me * ce)
+        return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD mixer
+# ---------------------------------------------------------------------------
+
+def ssm_defs(cfg: ModelConfig):
+    d, di, st, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    return {
+        "w_in": P((d, 2 * di + 2 * st + nh), ("embed", "inner")),
+        "conv_w": P((4, di + 2 * st), (None, "inner"), scale=0.5),
+        "a_log": P((nh,), (None,), init="ones"),
+        "d_skip": P((nh,), (None,), init="ones"),
+        "dt_bias": P((nh,), (None,), init="zeros"),
+        "norm": rmsnorm_defs(di),
+        "w_out": P((di, d), ("inner", "embed")),
+    }
+
+
+def _ssd_chunked(xh, a, b, c, chunk: int, f32: bool = True):
+    """SSD scan.  xh: (B,S,nh,hd) inputs ·dt;  a: (B,S,nh) per-step decay in
+    (0,1);  b,c: (B,S,N).  Returns (B,S,nh,hd) contraction with state dim N.
+
+    Quadratic-within-chunk + carried state across chunks (Mamba2 SSD).
+    ``f32=False`` rounds the big einsum operands to bf16 and accumulates
+    in float32 (the reference's ``preferred_element_type``: a product of
+    bf16 values is exact in float32, so the operands are rounded and then
+    contracted in float32); decay and cumsum stay float32.  The
+    reference's ``lax.scan`` over chunks is a Python loop.
+    """
+    bs, s, nh, hd = xh.shape
+    n = b.shape[-1]
+    nc = s // chunk
+
+    def mm(t):
+        return t.float() if f32 else t.to(torch.bfloat16).float()
+
+    xh = xh.reshape(bs, nc, chunk, nh, hd)
+    a = a.reshape(bs, nc, chunk, nh)
+    b = b.reshape(bs, nc, chunk, n)
+    c = c.reshape(bs, nc, chunk, n)
+    la = torch.log(a + 1e-20)
+    cum = torch.cumsum(la, 2)                                   # (B,NC,Q,nh)
+    # intra-chunk: G[t,s] = exp(cum[t]-cum[s]) for s<=t
+    gd = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,NC,Q,Q,nh)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))
+    g = torch.where(mask[None, None, :, :, None], torch.exp(gd), 0.0)
+    cb = torch.einsum("bzqn,bzsn->bzqs", mm(c), mm(b))
+    y_intra = torch.einsum("bzqs,bzqsh,bzshd->bzqhd", mm(cb), mm(g), mm(xh))
+    # chunk summaries: state contribution of each chunk
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)           # (B,NC,Q,nh)
+    chunk_state = torch.einsum("bzsn,bzsh,bzshd->bzhdn", mm(b),
+                               mm(decay_to_end), mm(xh))
+    chunk_decay = torch.exp(cum[:, :, -1, :])                   # (B,NC,nh)
+    h = torch.zeros((bs, nh, hd, n), dtype=torch.float32, device=xh.device)
+    h_prev = []
+    for z in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, z, :, None, None] + chunk_state[:, z]
+    h_prev = torch.stack(h_prev, 1)                             # (B,NC,nh,hd,N)
+    y_inter = torch.einsum("bzqn,bzqh,bzhdn->bzqhd", mm(c), mm(torch.exp(cum)),
+                           mm(h_prev))
+    return (y_intra + y_inter).reshape(bs, s, nh, hd)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: log(1 + eˣ) without torch's linear cut-off."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class SSMMixer(nn.Module):
+    """Mamba2 block with the reference's parameter names (``w_in``,
+    ``conv_w``, ``a_log``, ``d_skip``, ``dt_bias``, ``norm.scale``,
+    ``w_out``)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        for name, d in ssm_defs(cfg).items():
+            if name != "norm":
+                self.register_parameter(name, _param(d, device))
+        self.norm = RMSNorm(cfg.d_inner, device=device)
+
+    def forward(self, x, cache=None):
+        """Returns ``(y, new_cache)``; ``cache`` = dict(conv (B,3,ch),
+        state (B,nh,hd,N), pos), one layer's.  The state is written in
+        place; the conv window too where its dtype is the compute dtype's,
+        else ``new_cache["conv"]`` is a new tensor of the compute dtype (the
+        reference's conv state keeps the dtype it was computed in).
+
+        With a cache, the reference runs the one-token recurrence on the
+        first token alone and broadcasts its output over every position
+        (``repro/models/layers.py:548-557``), so a multi-token prefill
+        through the caches differs from the no-cache forward; the port
+        computes the same (ROADMAP C)."""
+        cfg = self.cfg
+        dt_ = _dt(cfg)
+        b_, s, _ = x.shape
+        di, st, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+        hd = di // nh
+        zxbcdt = torch.einsum("bsd,de->bse", x, self.w_in.to(dt_))
+        z = zxbcdt[..., :di]
+        xbc = zxbcdt[..., di:2 * di + 2 * st]
+        dt_raw = zxbcdt[..., 2 * di + 2 * st:]
+        # depthwise causal conv over xbc (width 4)
+        conv_w = self.conv_w.to(dt_)
+        if cache is None:
+            pad = torch.zeros((b_, 3, xbc.shape[-1]), dtype=xbc.dtype,
+                              device=x.device)
+        else:
+            pad = cache["conv"].to(xbc.dtype)
+        xpad = torch.cat([pad, xbc], 1)
+        conv = sum(xpad[:, i:i + s] * conv_w[i] for i in range(4))
+        conv = F.silu(conv)
+        xin, bmat, cmat = (conv[..., :di], conv[..., di:di + st],
+                           conv[..., di + st:])
+        dtv = _softplus(dt_raw.float() + self.dt_bias.float())
+        a = torch.exp(-torch.exp(self.a_log.float()) * dtv)    # (B,S,nh)
+        xh = xin.reshape(b_, s, nh, hd).float() * dtv[..., None]
+        if cache is None:
+            chunk = min(cfg.ssm_chunk, s)
+            assert s % chunk == 0
+            y = _ssd_chunked(xh, a, bmat.float(), cmat.float(), chunk,
+                             f32=cfg.ssd_f32)
+        else:
+            # single-token recurrence: h' = a·h + x⊗B ; y = h'·C
+            h = cache["state"]
+            h_new = (h * a[:, 0, :, None, None]
+                     + torch.einsum("bhd,bn->bhdn", xh[:, 0],
+                                    bmat[:, 0].float()))
+            y = torch.einsum("bhdn,bn->bhd", h_new, cmat[:, 0].float())
+            y = y[:, None].reshape(b_, 1, nh, hd)
+            h.copy_(h_new)
+        y = y + self.d_skip.float()[None, None, :, None] * xh
+        y = y.reshape(b_, s, di).to(dt_)
+        y = self.norm(y * F.silu(z))
+        out = torch.einsum("bse,ed->bsd", y, self.w_out.to(dt_))
+        new_cache = None
+        if cache is not None:
+            conv_state = xpad[:, -3:]
+            if cache["conv"].dtype == conv_state.dtype:
+                cache["conv"].copy_(conv_state)
+                conv_state = cache["conv"]
+            new_cache = {"conv": conv_state, "state": cache["state"],
+                         "pos": cache["pos"] + s}
+        return out, new_cache
+
+
+def ssm_cache_shape(cfg: ModelConfig, batch: int):
+    di, st, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    return {"conv": (batch, 3, di + 2 * st),
+            "state": (batch, nh, di // nh, st)}

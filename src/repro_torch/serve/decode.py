@@ -11,7 +11,7 @@ backend with zero per-op layout conversion.
 
 ``make_prefill``/``make_serve_step`` wrap the model's forward;
 ``greedy_decode`` runs prefill and one-token decode steps against zeroed
-KV caches and picks each token with ``torch.argmax`` (``sampler="host"``)
+caches (primed by the encoder for an enc-dec model) and picks each token with ``torch.argmax`` (``sampler="host"``)
 or with :func:`simdram_greedy_token` on a machine (``sampler="simdram"``),
 which on a CUDA machine runs the FSM and transposition kernels.
 """
@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.transformer import init_caches
+from ..models.transformer import (check_cfg, init_caches,
+                                  prime_encdec_caches)
 from ..ops.bbops import (PerfStats, bbop_greater, bbop_if_else,
                          simdram_pipeline)
 
@@ -28,18 +29,10 @@ __all__ = ["make_prefill", "make_serve_step", "greedy_decode",
            "simdram_argmax", "simdram_greedy_token", "quantize_logits"]
 
 
-def _check_cfg(model, cfg: ModelConfig) -> None:
-    """The port's model carries its config; ``cfg`` is taken to keep the
-    reference's signatures and must be the same configuration."""
-    if cfg is not model.cfg and cfg != model.cfg:
-        raise ValueError(f"cfg {cfg.name!r} is not the model's config "
-                         f"({model.cfg.name!r} with other fields)")
-
-
 def make_prefill(cfg: ModelConfig):
     """Multi-token forward that also populates the decode caches."""
     def prefill(model, batch, caches):
-        _check_cfg(model, cfg)
+        check_cfg(model, cfg)
         logits, _, new_caches = model(batch, caches)
         return logits[:, -1:], new_caches
     return prefill
@@ -48,7 +41,7 @@ def make_prefill(cfg: ModelConfig):
 def make_serve_step(cfg: ModelConfig):
     """One decode step: (model, caches, tokens (B,1)) → (logits, caches)."""
     def serve_step(model, caches, batch):
-        _check_cfg(model, cfg)
+        check_cfg(model, cfg)
         logits, _, new_caches = model(batch, caches)
         return logits, new_caches
     return serve_step
@@ -165,7 +158,8 @@ def simdram_greedy_token(logits: torch.Tensor, n_bits: int = 8,
 
 @torch.no_grad()
 def greedy_decode(model, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
-                  max_seq: int | None = None, sampler: str = "host",
+                  max_seq: int | None = None, extra_batch: dict | None = None,
+                  sampler: str = "host",
                   sampler_perf: PerfStats | None = None, machine=None):
     """Greedy decoding loop: ``prompt (B, S)`` token ids on the model's
     device → ``(B, steps)`` int64 token ids.
@@ -178,10 +172,12 @@ def greedy_decode(model, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
     accumulates the tournament's modeled DRAM cost across every decoded
     token.  The KV caches are zeroed at ``max_seq`` (``S + steps`` by
     default) in the cache's default bf16, and the prompt is prefilled
-    through them, as the reference does.  ``cfg`` must be ``model.cfg``
-    (ValueError otherwise).
+    through them, as the reference does.  ``extra_batch`` joins every
+    forward's batch (``encoder_frames`` for an enc-dec model, whose caches
+    are then primed by :func:`prime_encdec_caches` before the prefill).
+    ``cfg`` must be ``model.cfg`` (ValueError otherwise).
     """
-    _check_cfg(model, cfg)
+    check_cfg(model, cfg)
     if sampler == "simdram":
         def pick(logits):
             return simdram_greedy_token(logits, perf_stats=sampler_perf,
@@ -194,16 +190,19 @@ def greedy_decode(model, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
     b, s = prompt.shape
     max_seq = max_seq or (s + steps)
     caches = init_caches(cfg, b, max_seq, device=model.device)
+    extra = extra_batch or {}
+    if cfg.enc_dec and "encoder_frames" in extra:
+        caches = prime_encdec_caches(model, cfg, extra, caches)
     prefill = make_prefill(cfg)
     step = make_serve_step(cfg)
-    batch = {"tokens": prompt}
-    if cfg.rope == "mrope":
+    batch = {"tokens": prompt, **extra}
+    if cfg.rope == "mrope" and "mrope_positions" not in batch:
         batch["mrope_positions"] = torch.arange(
             s, device=prompt.device)[None, :, None].expand(b, s, 3)
     logits, caches = prefill(model, batch, caches)
     out = [pick(logits[:, -1])]
     for t in range(steps - 1):
-        db = {"tokens": out[-1][:, None]}
+        db = {"tokens": out[-1][:, None], **extra}
         if cfg.rope == "mrope":
             db["mrope_positions"] = torch.full((b, 1, 3), s + t,
                                                device=prompt.device)

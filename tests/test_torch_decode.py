@@ -84,6 +84,58 @@ def test_greedy_decode_simdram_matches_reference():
     assert st.snapshot() == ref_st.snapshot()
 
 
+FAMILY_CASES = [("olmoe_1b_7b", True), ("deepseek_v2_236b", True),
+                ("mamba2_130m", True), ("zamba2_7b", True),
+                ("whisper_large_v3", True), ("whisper_large_v3", False)]
+
+
+def encoder_frames(cfg, b: int, seed: int = 6) -> np.ndarray:
+    return (np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model)) * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("arch,frames", FAMILY_CASES)
+def test_greedy_decode_host_matches_reference_for_every_family(arch, frames):
+    """The MoE, MLA, SSM, hybrid and enc-dec families through
+    ``greedy_decode``: the prompt prefilled through the zeroed bf16 caches
+    (for the SSM layers, the reference's one-token recurrence broadcast
+    over the prompt, ROADMAP C), then one-token steps.  Whisper's caches
+    are primed from ``extra_batch``'s encoder frames, or stay zero without
+    them, as in the reference."""
+    rcfg, params, pcfg, model = setup(arch)
+    p = prompt(rcfg, 2, 8)
+    ref_extra, port_extra = None, None
+    if frames:
+        fr = encoder_frames(rcfg, 2) if rcfg.enc_dec else None
+        if fr is not None:
+            ref_extra = {"encoder_frames": jnp.asarray(fr)}
+            port_extra = {"encoder_frames": torch.from_numpy(fr)}
+    want = np.asarray(ref_decode.greedy_decode(
+        params, rcfg, jnp.asarray(p), steps=6, extra_batch=ref_extra))
+    got = port_decode.greedy_decode(model, pcfg, torch.from_numpy(p).long(),
+                                    steps=6, extra_batch=port_extra)
+    assert got.shape == (2, 6) and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_greedy_decode_simdram_moe_matches_reference():
+    """OLMoE (reduced) with the in-DRAM sampler: ids and the sampler's
+    ``PerfStats`` snapshot equal the reference's exactly."""
+    rcfg, params, pcfg, model = setup("olmoe_1b_7b")
+    p = prompt(rcfg, 2, 6, seed=4)
+    ref_st, st = ref_ops.PerfStats(), port_ops.PerfStats()
+    want = np.asarray(ref_decode.greedy_decode(
+        params, rcfg, jnp.asarray(p), steps=3, sampler="simdram",
+        sampler_perf=ref_st))
+    machine = port_ops.SimdramMachine(device="cpu", banks=2)
+    got = port_decode.greedy_decode(
+        model, pcfg, torch.from_numpy(p).long(), steps=3, sampler="simdram",
+        sampler_perf=st, machine=machine)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert st.n_programs == 3 * 24 and st.n_transposes == 3 * 3
+    assert st.snapshot() == ref_st.snapshot()
+
+
 def test_prefill_and_serve_step_match_reference():
     rcfg, params, pcfg, model = setup("qwen1_5_0_5b")
     b, s, t = 2, 7, 12

@@ -179,18 +179,6 @@ def test_params_from_reference_unstacks_and_ties(arch, lm_head):
         port_tf.Transformer(pcfg, "cpu").load_params(tensors)
 
 
-@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "deepseek_v2_236b",
-                                  "mamba2_130m", "zamba2_7b",
-                                  "whisper_large_v3"])
-def test_unported_families_raise(arch):
-    _, pcfg = configs(arch)
-    for build in (lambda: port_tf.model_defs(pcfg),
-                  lambda: port_tf.Transformer(pcfg, "cpu"),
-                  lambda: port_tf.init_caches(pcfg, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.2b"):
-            build()
-
-
 def test_cuda_model_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, pcfg = configs("qwen1_5_0_5b")
