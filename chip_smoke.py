@@ -72,6 +72,27 @@ Phases, each fatal on failure:
    frames) on the card == the CPU within the bf16 tolerance, MoE routes
    first; prints the peak memory allocated, launches a token, the
    sampler's modeled ns/nJ a token and the device's busy share;
+4g. the training path: Qwen1.5-0.5B at full width and depth (24 layers,
+   d_model 1,024, vocab 151,936, tied embeddings, bf16 compute, remat
+   "full", parameters drawn on the card from a seed) trains 20 steps
+   through ``repro_torch.launch.train.setup`` and its step on
+   ``synthetic_batch`` at the launcher's defaults (8 × 256 tokens), no
+   checkpoint at that size; the loss must fall; prints the ms a training
+   step (median of steps 3–20, CUDA events around each step), tokens/s,
+   model-FLOPs utilisation against 989 TFLOP/s bf16, peak memory, and,
+   under the profiler, the device's busy share over one step, the host's
+   torch ops a step and one AdamW update alone; checks (a) one step at
+   full width cut to 2 layers in float32 (batch 2 × 64) on the card ==
+   the CPU (objective, ``grad_norm`` and every gradient within 1e-4 ×
+   max|·|, parameters within 2 · lr), (b) 3 steps of the reduced config
+   of each family (dense, vlm, MoE, MLA, SSM, hybrid, enc-dec) on the card
+   == the CPU within 5e-2, (c) a ``CheckpointManager`` save and restore is
+   exact and the resumed losses equal the uninterrupted run's within 1e-6
+   relative, (d) ``microbatches=2`` and ``loss_chunk=16`` equal the plain
+   step within the CPU tests' tolerances; then runs
+   ``repro_torch.examples.train_100m`` at its defaults (111 M parameters,
+   20 steps), which must exit 0; the kernels' launch counters must read
+   0 through the whole phase;
 5. (run before 4e, printed after it) kernel times with CUDA events and
    the profiler (a trace that lost kernel events against the launch
    counter is taken again) beside the plain versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
@@ -100,7 +121,9 @@ An earlier source comes from git, e.g.
 a git-ignored directory such as ``build/ab_old/``.
 
 Phases 4, 4b, 4c, 4d, 4e and 4f each set every kernel's launch counter to 0
-before the path and fail if a kernel of that path did not launch.  Every
+before the path and fail if a kernel of that path did not launch; phase 4g
+sets them to 0 and fails if any kernel launched (no SIMDRAM kernel lies on
+the training path).  Every
 comparison of integers is exact; float logits are compared within the
 stated tolerances.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
@@ -111,6 +134,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -163,6 +187,18 @@ MOE_CHECKS = (("olmoe-1b-7b", 2), ("deepseek-v2-236b", 2),
               ("mamba2-130m", None))
 REDUCED_FAMILIES = ("olmoe-1b-7b", "deepseek-v2-236b", "mamba2-130m",
                     "zamba2-7b", "whisper-large-v3")
+# phase 4g: Qwen1.5-0.5B trained at full width and depth through the
+# launcher's setup, at its defaults (batch 8 × seq 256), 20 steps, steps
+# 3–20 timed; check (a) at full width cut to 2 layers, batch 2 × 64;
+# check (b) on the reduced config of each family
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_TIMED_FROM = 8, 256, 20, 2
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SHAPE = 2, (2, 64)
+TRAIN_FAMILIES = ("qwen1.5-0.5b", "qwen2-vl-2b", "olmoe-1b-7b",
+                  "deepseek-v2-236b", "mamba2-130m", "zamba2-7b",
+                  "whisper-large-v3")
+TRAIN_F32_REL, TRAIN_LOSS_REL = 1e-4, 1e-5    # the CPU tests' tolerances
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
 # kernel → largest |kernel − plain version| seen in phases 2, 3 and 2b
 MAX_ABS_ERR: dict[str, int] = {}
 
@@ -1024,6 +1060,422 @@ def moe_serving_path(device, wrappers: dict) -> dict:
     res["seconds"] = time.perf_counter() - t0
     return res
 
+# -- phase 4g ----------------------------------------------------------------
+
+def train_tolerance(lr: float, steps: int) -> float:
+    """The absolute bound on an updated parameter after ``steps`` AdamW
+    steps at most ``lr`` each: Adam's first steps move an element by ≈ lr ·
+    sign(g), so a near-zero gradient whose sign differs between two
+    devices moves it by up to 2 · lr a step."""
+    return 2 * lr * steps
+
+
+def params_close(got, want, bound: float, what: str) -> tuple:
+    """Every parameter of model ``got`` within ``bound`` of ``want``'s, and
+    at most 0.1 % of the elements beyond 1 % of it.  Returns (largest
+    difference, share beyond 1 % of the bound)."""
+    want = dict(want.named_parameters())
+    worst, n_far, n = 0.0, 0, 0
+    for name, p in got.named_parameters():
+        d = (p.detach().cpu() - want[name].detach().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        n_far += int((d > 0.01 * bound).sum())
+        n += d.numel()
+    _check(worst <= bound and n_far <= 1e-3 * n,
+           f"{what}: parameters differ by up to {worst:.3e} (bound "
+           f"{bound:.3e}), {n_far} of {n} beyond 1 % of it")
+    return worst, n_far / n
+
+
+def loss_and_grads(model, cfg, batch) -> tuple:
+    """The objective and every parameter's gradient of one
+    ``make_loss_fn`` backward pass (no update), on the CPU."""
+    from repro_torch.train.train_step import make_loss_fn
+    for p in model.parameters():
+        p.grad = None
+    objective, _ = make_loss_fn(cfg)(model, batch)
+    objective.backward()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(objective.detach()), grads
+
+
+def train_models(cfg, seed: int, devices) -> dict:
+    """``{device: model}`` of ``cfg`` on each of ``devices`` with the same
+    parameters, drawn on the CPU from ``seed``."""
+    import torch
+
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.transformer import Transformer, model_defs
+    params = init_params(model_defs(cfg), torch.Generator().manual_seed(seed),
+                         device="cpu")
+    return {dev: Transformer(cfg, device=dev).load_params(
+        tree_map(lambda t, d=dev: t.to(d), params)) for dev in devices}
+
+
+def train_step_matches_cpu(device) -> dict:
+    """Check (a): one ``make_train_step`` of Qwen1.5-0.5B at full width cut
+    to 2 layers, float32 compute (TF32 off), batch 2 × 64, on the card and
+    on the CPU from the same parameters: the objective, ``grad_norm`` and
+    every gradient within 1e-4 × max|CPU value| (the gradients by one
+    ``make_loss_fn`` backward pass on each device, before the step), the
+    updated parameters within ``train_tolerances``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    _check(not torch.backends.cuda.matmul.allow_tf32,
+           "TF32 matmul is on; the float32 checks need it off")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), compute_dtype="float32",
+                              n_layers=TRAIN_CHECK_LAYERS)
+    models = train_models(cfg, SEED + 22, ("cpu", device))
+    b, s = TRAIN_CHECK_SHAPE
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b)
+    batch = {dev: synthetic_batch(dcfg, 0, device=dev) for dev in models}
+    out = {dev: loss_and_grads(m, cfg, batch[dev])
+           for dev, m in models.items()}
+    (want, want_g), (got, got_g) = out["cpu"], out[device]
+    res = {"loss_err": abs(got - want) / abs(want), "grad_err": 0.0}
+    _check(res["loss_err"] <= TRAIN_F32_REL, f"full-width step: objective "
+           f"{got} on the card, {want} on the CPU")
+    for name, g in want_g.items():
+        err = float((got_g[name] - g).abs().max())
+        bound = TRAIN_F32_REL * float(g.abs().max())
+        _check(err <= bound, f"full-width step: gradient of {name} differs "
+               f"by {err:.3e} (bound {bound:.3e})")
+        res["grad_err"] = max(res["grad_err"],
+                              err / max(float(g.abs().max()), 1e-30))
+    opt = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS, warmup_steps=10)
+    metrics = {}
+    for dev, model in models.items():
+        step = make_train_step(cfg, opt)
+        metrics[dev] = step(init_train_state(model), batch[dev])[1]
+    for k in ("loss", "grad_norm", "lr"):
+        w, g = float(metrics["cpu"][k]), float(metrics[device][k])
+        _check(abs(g - w) <= TRAIN_F32_REL * abs(w), f"full-width step: "
+               f"{k} {g} on the card, {w} on the CPU")
+    res["lr"] = float(metrics["cpu"]["lr"])
+    res["param_err"], res["param_far"] = params_close(
+        models[device], models["cpu"], train_tolerance(res["lr"], 1),
+        "full-width step")
+    res["params"] = sum(p.numel() for p in models["cpu"].parameters())
+    return res
+
+
+def train_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """Seeded tokens, labels (and M-RoPE positions, encoder frames) on the
+    CPU, as ``tests/test_torch_train_families.py`` makes them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    arrs = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+            "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.rope == "mrope":
+        arrs["mrope_positions"] = np.tile(
+            np.arange(s, dtype=np.int32)[None, :, None], (b, 1, 3))
+    if cfg.enc_dec:
+        arrs["encoder_frames"] = (rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)) * 0.1).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in arrs.items()}
+
+
+def reduced_trains_like_cpu(device, arch: str) -> float:
+    """Check (b): ``arch``'s reduced config (bf16 compute) takes 3 steps on
+    the card and on the CPU from the same parameters on the same batches:
+    loss and ``grad_norm`` within 5e-2 relative at every step.  Returns the
+    largest relative difference."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = get_reduced(arch)
+    models = train_models(cfg, SEED + 23, ("cpu", device))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    states = {dev: init_train_state(m) for dev, m in models.items()}
+    worst = 0.0
+    for i in range(3):
+        batch = train_batch(cfg, 4, 16, SEED + 24 + i)
+        metrics = {}
+        for dev in models:
+            states[dev], metrics[dev] = step(
+                states[dev], tree_map(lambda t, d=dev: t.to(d), batch))
+        for k in ("loss", "grad_norm"):
+            w, g = float(metrics["cpu"][k]), float(metrics[device][k])
+            err = abs(g - w) / abs(w)
+            _check(err <= LM_BF16_REL, f"reduced {arch}, step {i}: {k} {g} "
+                   f"on the card, {w} on the CPU")
+            worst = max(worst, err)
+    return worst
+
+
+def state_copy(state) -> dict:
+    """Every tensor of a training state, copied, by checkpoint key."""
+    from repro_torch.distributed.checkpoint import state_leaves
+    return {k: t.detach().clone() for k, t in state_leaves(state).items()}
+
+
+def checkpoint_resumes(device) -> float:
+    """Check (c): the reduced config on the card trains 2 steps, saves a
+    checkpoint (a temporary directory), trains 3 more; a fresh state
+    restored from the checkpoint equals the saved state bit for bit and
+    its 3 continued steps give the uninterrupted run's losses within 1e-6
+    relative.  Returns the largest relative loss difference."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.launch.train import setup
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_reduced(TRAIN_ARCH)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    state, step = setup(cfg, opt, seed=SEED + 25, device=device)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    batches = [synthetic_batch(dcfg, s, device=device) for s in range(5)]
+    for s in range(2):
+        state, _ = step(state, batches[s])
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp)
+        try:
+            mgr.save(2, state, blocking=True)
+            saved = state_copy(state)
+            straight = [float(step(state, batches[s])[1]["loss"])
+                        for s in range(2, 5)]
+            fresh, _ = setup(cfg, opt, seed=SEED + 26, device=device)
+            restored = mgr.restore(mgr.latest_step(), fresh)
+        finally:
+            mgr.close()
+    got = state_copy(restored)
+    _check(got.keys() == saved.keys() and all(
+        torch.equal(got[k], saved[k]) for k in saved),
+        "the restored state differs from the saved one")
+    resumed = [float(step(restored, batches[s])[1]["loss"])
+               for s in range(2, 5)]
+    err = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight))
+    _check(err <= 1e-6, f"resumed losses {resumed} differ from the "
+           f"uninterrupted run's {straight}")
+    return err
+
+
+def train_variants_match(device) -> dict:
+    """Check (d): on the card, the reduced config in float32 compute takes
+    3 steps with ``microbatches=2`` and with ``loss_chunk=16`` beside the
+    plain step, from the same parameters on the same batches:
+    ``grad_norm`` (and, chunked, the loss) within 1e-5 relative at every
+    step and the parameters after within ``train_tolerance`` (the CPU
+    tests' tolerances).  Returns {variant: largest relative difference}."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH),
+                              compute_dtype="float32")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    batches = [synthetic_batch(dcfg, s, device=device) for s in range(3)]
+    runs = {}
+    for name, kw in (("plain", {}), ("microbatches=2", {"microbatches": 2}),
+                     ("loss_chunk=16", {"loss_chunk": 16})):
+        model = train_models(cfg, SEED + 27, (device,))[device]
+        state, step = init_train_state(model), make_train_step(cfg, opt,
+                                                               **kw)
+        metrics = [step(state, b)[1] for b in batches]
+        runs[name] = (model, [{k: float(v) for k, v in m.items()}
+                              for m in metrics])
+    plain, want = runs.pop("plain")
+    out = {}
+    for name, (model, got) in runs.items():
+        keys = ("grad_norm", "loss") if name.startswith("loss") \
+            else ("grad_norm",)
+        out[name] = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in
+                        zip(got, want) for k in keys)
+        _check(out[name] <= TRAIN_LOSS_REL, f"{name}: {got} against the "
+               f"plain step's {want}")
+        params_close(model, plain, train_tolerance(opt.lr, 3), name)
+    return out
+
+
+def train_full_width(device) -> dict:
+    """Qwen1.5-0.5B at full width and depth (bf16 compute, remat "full")
+    through ``launch.train.setup`` and its step, parameters drawn on the
+    card from a seed, on ``synthetic_batch`` at the launcher's defaults
+    (batch 8 × seq 256) for 20 steps at the launcher's schedule; the
+    batches are made before the first step.  CUDA events around each
+    step; the loss must fall.  Returns the numbers to print, the state and
+    the step."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import setup
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                      warmup_steps=max(10, TRAIN_STEPS // 20))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = setup(cfg, opt, seed=SEED + 28, device=device)
+    _sync(device)
+    res = {"cfg": cfg, "opt": opt, "build_peak":
+           torch.cuda.max_memory_allocated(),
+           "params": sum(p.numel() for p in state.params.parameters())}
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = [synthetic_batch(dcfg, s, device=device)
+               for s in range(TRAIN_STEPS)]
+    events, metrics = [], []
+    t0 = time.perf_counter()
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["step_ms"] = [a.elapsed_time(b) for a, b in events]
+    res["losses"] = [float(m["loss"]) for m in metrics]
+    res["grad_norms"] = [float(m["grad_norm"]) for m in metrics]
+    _check(all(math.isfinite(x) for x in res["losses"] + res["grad_norms"])
+           and res["losses"][-1] < res["losses"][0],
+           f"full-width training: losses {res['losses']}")
+    _check(int(state.opt.step) == TRAIN_STEPS, "the step counter is at "
+           f"{int(state.opt.step)} after {TRAIN_STEPS} steps")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # model FLOPs a step: 6·N·tokens, plus attention's 12·L·d·seq a token
+    # (PaLM, arXiv:2204.02311, appendix B); remat's second forward is not
+    # counted
+    res["flops"] = (6 * res["params"] * tokens
+                    + 12 * cfg.n_layers * cfg.d_model * TRAIN_SEQ * tokens)
+    res["state"], res["step"], res["batch"] = state, step, batches[-1]
+    return res
+
+
+def train_example() -> float:
+    """``python -m repro_torch.examples.train_100m`` at its defaults (20
+    steps, batch 8 × 256), in this process, its checkpoint in a temporary
+    directory: it must exit 0, which it does iff the loss improved.
+    Returns its wall seconds."""
+    import tempfile
+
+    from repro_torch.examples import train_100m
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = train_100m.main(["--ckpt", tmp])
+    _check(rc == 0, f"examples.train_100m exited {rc}")
+    return time.perf_counter() - t0
+
+
+def training_path(device) -> dict:
+    """Phase 4g: the full-width run, then checks (a)–(d) and the example.
+    Returns the numbers to print."""
+    t0 = time.perf_counter()
+    res = train_full_width(device)
+    res["check_a"] = train_step_matches_cpu(device)
+    res["check_b"] = {arch: reduced_trains_like_cpu(device, arch)
+                      for arch in TRAIN_FAMILIES}
+    res["check_c"] = checkpoint_resumes(device)
+    res["check_d"] = train_variants_match(device)
+    res["example_s"] = train_example()
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def optimizer_step(state, opt) -> float:
+    """One ``adamw_update`` of the whole state on zero gradients (it
+    changes the state), ending in a synchronize; returns its wall
+    seconds."""
+    import torch
+
+    from repro_torch.train.optimizer import adamw_update
+    named = dict(state.params.named_parameters())
+    grads = {k: torch.zeros_like(p) for k, p in named.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adamw_update(opt, state.opt, named, grads)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def one_train_step(train: dict) -> float:
+    """One more full-width step on the last batch, ending in a
+    synchronize; returns its wall seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train["state"], m = train["step"](train["state"], train["batch"])
+    float(m["loss"])
+    return time.perf_counter() - t0
+
+
+def print_training(train: dict, launches: dict, card: str) -> None:
+    """Print phase 4g's numbers, each line of times with the card's name
+    and power limit."""
+    cfg, ms = train["cfg"], train["step_ms"]
+    timed = sorted(ms[TRAIN_TIMED_FROM:])
+    median = statistics.median(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 4g: {cfg.name} trained at full width and depth "
+          f"({train['params']:,} float32 parameters, {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab}, tied embeddings "
+          f"{cfg.tie_embeddings}, {cfg.compute_dtype} compute, remat "
+          f"{cfg.remat!r}), synthetic_batch {TRAIN_BATCH} x {TRAIN_SEQ} = "
+          f"{tokens} tokens a step, {TRAIN_STEPS} steps, warmup "
+          f"{train['opt'].warmup_steps} [{card}]")
+    print(f"phase 4g: loss {train['losses'][0]:.4f} -> "
+          f"{train['losses'][-1]:.4f}; grad_norm {train['grad_norms'][0]:.4f}"
+          f" -> {train['grad_norms'][-1]:.4f}; {train['seconds']:.2f} s for "
+          f"the {TRAIN_STEPS} steps [{card}]")
+    print(f"phase 4g: {median:.2f} ms a training step (median of steps "
+          f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS}, CUDA events; min "
+          f"{timed[0]:.2f}, max {timed[-1]:.2f}; steps 1-2 "
+          f"{ms[0]:.1f}, {ms[1]:.1f}); {tokens / median * 1e3:,.0f} tokens/s;"
+          f" MFU {100 * train['flops'] / (median / 1e3) / BF16_FLOPS_PER_S:.2f}"
+          f"% ({train['flops'] / 1e12:.3f} model TFLOP a step over "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16) [{card}]")
+    print(f"phase 4g: peak {train['build_peak'] / 2**30:.2f} GiB allocated "
+          f"after the build, {train['peak'] / 2**30:.2f} GiB through the "
+          f"steps (max_memory_allocated) [{card}]")
+    a = train["check_a"]
+    print(f"phase 4g (a): one step at full width, {TRAIN_CHECK_LAYERS} layers "
+          f"({a['params']:,} parameters), float32, batch "
+          f"{TRAIN_CHECK_SHAPE[0]} x {TRAIN_CHECK_SHAPE[1]}, card vs CPU: "
+          f"objective {a['loss_err']:.3e} relative, gradients "
+          f"{a['grad_err']:.3e} x max|grad| (limit {TRAIN_F32_REL}); "
+          f"parameters after the step max |diff| {a['param_err']:.3e} (bound "
+          f"2 x lr = {2 * a['lr']:.3e}), {a['param_far']:.2e} of the "
+          "elements beyond 1 % of it")
+    for arch, err in train["check_b"].items():
+        print(f"phase 4g (b): reduced {arch}, 3 steps, card vs CPU: loss and "
+              f"grad_norm within {err:.3e} relative (limit {LM_BF16_REL})")
+    print(f"phase 4g (c): checkpoint restored bit for bit; resumed losses "
+          f"within {train['check_c']:.3e} relative of the uninterrupted run's"
+          " (limit 1e-06)")
+    for name, err in train["check_d"].items():
+        print(f"phase 4g (d): {name} vs the plain step, 3 steps: within "
+              f"{err:.3e} relative (limit {TRAIN_LOSS_REL})")
+    print(f"phase 4g: examples.train_100m at its defaults exited 0 in "
+          f"{train['example_s']:.1f} s; phase 4g took {train['phase_s']:.1f} "
+          f"s; launches {launches} [{card}]")
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def cuda_ms(fn, inputs: list, iters: int) -> float:
@@ -1108,7 +1560,8 @@ def device_breakdown(label: str, run) -> None:
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
     print(f"{label} under the profiler: {seconds:.3f} s wall, device busy "
-          f"{busy:.3f} ms ({100 * busy / 1e3 / seconds:.2f}%)")
+          f"{busy:.3f} ms ({100 * busy / 1e3 / seconds:.2f}%) in "
+          f"{sum(n for _, _, n in rows)} device ops")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:9.3f} ms  x{count:<5} {key[:90]}")
     torch.cuda.synchronize()
@@ -1644,11 +2097,27 @@ def main() -> int:
     del moe
     torch.cuda.empty_cache()
 
+    for w in wrappers.values():
+        w.launches = 0
+    train = training_path(device)
+    train_launches = {name: w.launches for name, w in wrappers.items()}
+    print_training(train, train_launches, card)
+    _check(not any(train_launches.values()),
+           f"a SIMDRAM kernel launched on the training path: {train_launches}")
+    device_breakdown(f"training step, full width [{card}]",
+                     lambda: one_train_step(train))
+    host_breakdown("training step, full width",
+                   lambda: one_train_step(train), 1)
+    device_breakdown(f"AdamW update alone, full width [{card}]",
+                     lambda: optimizer_step(train["state"], train["opt"]))
+    del train
+    torch.cuda.empty_cache()
+
     by_path = {"main": launches, "applications/unrolled":
                app_launches["unrolled"], "applications/kernel":
                app_launches["kernel"], "serving": serve_launches,
                "sampler": sampler_launches, "lm_serving": lm_launches,
-               "lm_moe": moe_launches}
+               "lm_moe": moe_launches, "training": train_launches}
     for row in kernels:
         wrapper = row["name"].split("/")[0]
         row["launches_by_path"] = {path: counts.get(wrapper, 0)

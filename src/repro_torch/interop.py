@@ -39,3 +39,26 @@ def params_from_reference(cfg, tree, device: str | torch.device = "cuda"):
     from .models.transformer import Transformer
     tensors = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
     return Transformer(cfg, device=device).load_params(tensors)
+
+
+def params_to_reference(model, named: dict | None = None) -> dict:
+    """Inverse of :func:`params_from_reference`: ``named`` (parameter name →
+    tensor, for example the gradients of a step; the model's own
+    parameters when None) → the reference's tree of numpy arrays, the
+    per-layer tensors stacked again along the layer axis."""
+    from .models.params import tree_leaves
+    from .models.transformer import STACKED, model_defs
+    if named is None:
+        named = dict(model.named_parameters())
+    out: dict = {}
+    for path, _ in tree_leaves(model_defs(model.cfg)):
+        names = model._names(path)
+        ts = [named[n].detach().cpu() for n in names]
+        arr = (torch.stack(ts) if path.partition(".")[0] in STACKED
+               else ts[0]).numpy()
+        node = out
+        *parents, leaf = path.split(".")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = arr
+    return out

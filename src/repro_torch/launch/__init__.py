@@ -1,1 +1,2 @@
-"""Launchers: the serving CLI (:mod:`repro_torch.launch.serve`)."""
+"""Launchers: the serving CLI (:mod:`repro_torch.launch.serve`) and the
+single-device training launcher (:mod:`repro_torch.launch.train`)."""

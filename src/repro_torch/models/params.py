@@ -89,6 +89,14 @@ def init_params(defs, generator: torch.Generator,
     return out
 
 
+def abstract_params(defs, dtype: torch.dtype = torch.float32):
+    """Tree of ``device="meta"`` tensors of each leaf's shape: the
+    reference's ``ShapeDtypeStruct`` tree (the dry-run path), allocating
+    nothing."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
+
+
 def logical_specs(defs):
     """Tree of logical-axis tuples, mirroring the params tree."""
     return tree_map(lambda d: d.axes, defs)

@@ -10,14 +10,19 @@ Entry points (the reference's, :mod:`repro.models.transformer`)
                                           fills it from such a tree,
                                           ``draw_params(generator)`` draws
                                           it in place
-``Transformer(...)(batch, caches=None)``  → (logits, aux, new_caches)
+``Transformer(...)(batch, caches=None)``  → (logits, aux, new_caches);
+                                          ``return_hidden=True`` gives the
+                                          final-norm hidden states instead
+                                          of logits (the chunked loss)
 ``prime_encdec_caches(model, cfg, ...)``  run the encoder once into the
                                           caches (enc-dec serving)
 ``init_cache_shapes(cfg, batch, seq)``    decode-cache (shape, dtype) tree
 ``init_caches(cfg, batch, seq, ...)``     the zeroed decode caches
 
-``forward``'s ``return_hidden`` is not ported (it serves the training
-loss, ROADMAP A.3).
+Under autograd without caches, ``cfg.remat != "none"`` ("full" and
+"dots" alike) recomputes each block in the backward pass, where the
+reference applies ``jax.checkpoint``: an attention block, an SSM block,
+and the hybrid's SSM layer together with the shared block after it.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -205,9 +211,9 @@ class Transformer(nn.Module):
     the caller asks for the CPU); fill it with :meth:`load_params` or
     :meth:`draw_params`.
 
-    ``cfg.scan_layers`` and ``cfg.remat`` do not change the computation:
-    the layer loop is Python either way, and there is nothing to
-    rematerialise without a backward pass.
+    ``cfg.scan_layers`` does not change the computation: the layer loop
+    is Python either way.  ``cfg.remat`` recomputes blocks in the backward
+    pass (module docstring) and changes no value.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -283,24 +289,30 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, batch: dict, caches=None):
+    def forward(self, batch: dict, caches=None, return_hidden: bool = False):
         """batch: tokens (B,S) [+ positions, mrope_positions (B,S,3),
         encoder_frames (B,T,d)].
 
         Returns (logits, aux_loss, new_caches).  ``caches=None`` → full
         causal attention; otherwise the tokens are decoded against the
         caches (one token, or a cache-populating prefill), whose tensors
-        are written in place, without autograd.
+        are written in place, without autograd.  ``return_hidden=True``
+        returns the final-norm hidden states (B,S,d) of the compute dtype
+        instead of logits (the chunked-vocab loss).
         """
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and caches is None):
-            return self._forward(batch, caches)
+            return self._forward(batch, caches, return_hidden)
 
-    def _forward(self, batch, caches):
+    def _forward(self, batch, caches, return_hidden):
         cfg = self.cfg
+        remat = (cfg.remat != "none" and caches is None
+                 and torch.is_grad_enabled())
         dt = _dt(cfg)
         tokens = batch["tokens"]
-        # the gather commutes with the reference's cast of the whole table
+        # the gather commutes with the reference's cast of the whole table;
+        # in bf16 the backward's scatter-add of repeated tokens then sums in
+        # float32 here and in bf16 there (within the bf16 tolerance)
         x = self.embed[tokens].to(dt)
         start = int(caches["pos"]) if caches is not None else 0
         positions = batch.get("positions")
@@ -315,8 +327,8 @@ class Transformer(nn.Module):
             layers = caches["layers"] if caches is not None else None
             layer_pos = []
             for i, block in enumerate(self.blocks):
-                x, a, nc = block(x, positions, _layer_cache(layers, i),
-                                 mrope, encoder_out)
+                x, a, nc = _call(remat, block, x, positions,
+                                 _layer_cache(layers, i), mrope, encoder_out)
                 aux = aux + a
                 if nc is not None:
                     layer_pos.append(nc["pos"])
@@ -324,11 +336,11 @@ class Transformer(nn.Module):
                 new_caches["layers"] = dict(layers, pos=_pos(layer_pos))
         elif cfg.family == "ssm":
             layers = caches["layers"] if caches is not None else None
-            x, new_layers = self._ssm_stack(x, layers)
+            x, new_layers = self._ssm_stack(x, layers, remat=remat)
             if caches is not None:
                 new_caches["layers"] = new_layers
         elif cfg.family == "hybrid":
-            x, hc = self._hybrid_stack(x, positions, caches)
+            x, hc = self._hybrid_stack(x, positions, caches, remat)
             if caches is not None:
                 new_caches.update(hc)
         else:
@@ -338,23 +350,30 @@ class Transformer(nn.Module):
             new_caches["pos"] = caches["pos"] + tokens.shape[1]
             if cfg.enc_dec:
                 new_caches["encoder_out"] = encoder_out
+        if return_hidden:
+            return x, aux, new_caches
         head = self.embed.t() if cfg.tie_embeddings else self.lm_head
         logits = torch.einsum("bsd,dv->bsv", x, head.to(dt)).float()
         return logits, aux, new_caches
 
-    def _ssm_stack(self, x, layers, shared=None):
+    def _ssm_stack(self, x, layers, shared=None, remat: bool = False):
         """The SSM layers over ``x``; ``shared(i, x)`` (hybrid) runs after
-        each.  Returns ``(x, new layer caches)`` (None without caches).
-        A conv window whose dtype is not the compute dtype's comes back as
-        a new stacked tensor, as the reference's scan stacks it."""
+        each, inside layer ``i``'s recomputed body under ``remat``.
+        Returns ``(x, new layer caches)`` (None without caches).  A conv
+        window whose dtype is not the compute dtype's comes back as a new
+        stacked tensor, as the reference's scan stacks it."""
+        def body(i, block, x, cache):
+            x, nc = block(x, cache)
+            if shared is not None:
+                x = shared(i, x)
+            return x, nc
+
         convs, layer_pos = [], []
         for i, block in enumerate(self.ssm_blocks):
-            x, nc = block(x, _layer_cache(layers, i))
+            x, nc = _call(remat, body, i, block, x, _layer_cache(layers, i))
             if nc is not None:
                 convs.append(nc["conv"])
                 layer_pos.append(nc["pos"])
-            if shared is not None:
-                x = shared(i, x)
         if layers is None:
             return x, None
         conv = layers["conv"]
@@ -362,7 +381,7 @@ class Transformer(nn.Module):
             conv = torch.stack(convs)
         return x, dict(layers, conv=conv, pos=_pos(layer_pos))
 
-    def _hybrid_stack(self, x, positions, caches):
+    def _hybrid_stack(self, x, positions, caches, remat: bool = False):
         """Zamba2-style: Mamba2 layers with the single weight-tied attention
         block after every sixth; with caches, invocation j of the shared
         block has KV cache j (``shared_attn.k[j]``), at the model's
@@ -383,7 +402,7 @@ class Transformer(nn.Module):
             return self.shared_attn(x, positions, c)[0]
 
         x, ssm = self._ssm_stack(x, caches["ssm"] if caches is not None
-                                 else None, shared=shared)
+                                 else None, shared=shared, remat=remat)
         if caches is None:
             return x, None
         return x, {"ssm": ssm, "shared_attn": attn_caches}
@@ -409,6 +428,16 @@ def check_cfg(model: Transformer, cfg: ModelConfig) -> None:
     if cfg is not model.cfg and cfg != model.cfg:
         raise ValueError(f"cfg {cfg.name!r} is not the model's config "
                          f"({model.cfg.name!r} with other fields)")
+
+
+def _call(remat: bool, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass under ``remat`` (the
+    reference's ``jax.checkpoint``; the model draws no random numbers, so
+    no RNG state is kept)."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _layer_cache(layers, i: int):

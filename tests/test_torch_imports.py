@@ -36,7 +36,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(port_modules()) >= 54
+    assert len(port_modules()) >= 63
     # the serving slice: configs, server, sampler and launcher
     assert {"repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.serve", "repro_torch.serve.batching",
@@ -50,6 +50,13 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.simdram.reliability", "repro_torch.examples",
             "repro_torch.examples.serve_decode",
             "repro_torch.device"} <= set(port_modules())
+    # the training slice: optimizer, data, step, checkpoint, failover,
+    # launcher and example
+    assert {"repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.data", "repro_torch.train.train_step",
+            "repro_torch.distributed", "repro_torch.distributed.checkpoint",
+            "repro_torch.distributed.failover", "repro_torch.launch.train",
+            "repro_torch.examples.train_100m"} <= set(port_modules())
 
 
 def test_port_sources_import_no_jax_and_no_repro():
@@ -83,7 +90,11 @@ def test_every_sliced_reference_module_has_a_counterpart():
                 "launch/serve.py", "simdram/reliability.py",
                 "tools/__init__.py", "tools/tracelint.py",
                 "models/__init__.py", "models/params.py",
-                "models/layers.py", "models/transformer.py"):
+                "models/layers.py", "models/transformer.py",
+                "train/__init__.py", "train/optimizer.py", "train/data.py",
+                "train/train_step.py", "distributed/__init__.py",
+                "distributed/checkpoint.py", "distributed/failover.py",
+                "launch/train.py"):
         assert (ref / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     # the applications example becomes a module of the port
@@ -92,6 +103,9 @@ def test_every_sliced_reference_module_has_a_counterpart():
     # and so does the serving example
     assert (PORT.parents[1] / "examples" / "serve_decode.py").exists()
     assert (PORT / "examples" / "serve_decode.py").exists()
+    # and the training example
+    assert (PORT.parents[1] / "examples" / "train_100m.py").exists()
+    assert (PORT / "examples" / "train_100m.py").exists()
     # every architecture config is copied
     for path in (ref / "configs").glob("*.py"):
         assert (PORT / "configs" / path.name).exists(), path.name
