@@ -93,6 +93,29 @@ Phases, each fatal on failure:
    ``repro_torch.examples.train_100m`` at its defaults (111 M parameters,
    20 steps), which must exit 0; the kernels' launch counters must read
    0 through the whole phase;
+4h. the distributed path: (a) 4g's model, batches and schedule through
+   ``launch.train.setup(..., compressed=True, exchange="packed")`` on a
+   (1, 1) mesh over an NCCL process group of one rank, 20 steps; the loss
+   must fall; check: on the first batch's gradients the vote (pack,
+   all-gather, majority, scale) equals sign(g + e) · mean|g + e| of every
+   leaf computed plainly (signs exact, scales within 1e-6); prints the ms
+   a step (CUDA events), the vote alone on those gradients (whole, and
+   its parts, timed by events at the marks of the step's own exchange),
+   the packed bytes against a float32
+   all-reduce's, peak memory, and 10 plain steps through ``setup`` on the
+   same mesh; (b) 4 processes on the one card over gloo (the eager
+   collectives take CUDA tensors; DTensor's functional all-gather is
+   staged through host memory), joined with a timeout: 3 steps of the
+   ``packed``, ``psum`` and ``two_phase`` exchanges at the reduced config
+   (float32) against the same 4 ranks on the CPU (losses within 1e-5
+   relative, parameters within 1e-5 but for at most one, or 0.1 %, of a
+   leaf's elements, whose vote turned, within 2 · lr a step; every rank
+   equal), the
+   pipeline at the reference test's shapes against the sequential
+   composition (forward 1e-5, gradients 1e-4), and the sharded plain step
+   on a (2, 2) mesh against one rank (1e-4; parameters within lr a step);
+   the launch counters, this process's and each spawned rank's (saved
+   beside its results), must read 0;
 5. (run before 4e, printed after it) kernel times with CUDA events and
    the profiler (a trace that lost kernel events against the launch
    counter is taken again) beside the plain versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
@@ -121,9 +144,9 @@ An earlier source comes from git, e.g.
 a git-ignored directory such as ``build/ab_old/``.
 
 Phases 4, 4b, 4c, 4d, 4e and 4f each set every kernel's launch counter to 0
-before the path and fail if a kernel of that path did not launch; phase 4g
-sets them to 0 and fails if any kernel launched (no SIMDRAM kernel lies on
-the training path).  Every
+before the path and fail if a kernel of that path did not launch; phases 4g
+and 4h set them to 0 and fail if any kernel launched (no SIMDRAM kernel lies
+on the training or the distributed path).  Every
 comparison of integers is exact; float logits are compared within the
 stated tolerances.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
@@ -199,6 +222,19 @@ TRAIN_FAMILIES = ("qwen1.5-0.5b", "qwen2-vl-2b", "olmoe-1b-7b",
                   "whisper-large-v3")
 TRAIN_F32_REL, TRAIN_LOSS_REL = 1e-4, 1e-5    # the CPU tests' tolerances
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
+# phase 4h: (a) 4g's model, shape and steps through the compressed step on a
+# (1, 1) mesh over an NCCL group of one rank, then 10 plain steps on it;
+# (b) DIST_RANKS processes on the one card over gloo: 3 steps of each
+# compressed exchange at the reduced config (float32 compute) against the
+# same ranks on the CPU, the pipeline at the reference test's shapes, the
+# sharded plain step on a (2, 2) mesh against one rank; a parameter element
+# farther than DIST_FAR from the CPU's has had its vote turned, which at
+# most one, or 0.1 %, of a leaf's elements may have
+DIST_RANKS, DIST_STEPS, DIST_LR, DIST_PLAIN_STEPS = 4, 3, 1e-3, 10
+DIST_FAR = 1e-5
+DIST_EXCHANGES = {"packed": ("packed", False), "psum": ("psum", False),
+                  "two_phase": ("packed", True)}
+PIPE_CASES = {"forward": (6, 8, 16, False), "grad": (4, 4, 8, True)}
 # kernel → largest |kernel − plain version| seen in phases 2, 3 and 2b
 MAX_ABS_ERR: dict[str, int] = {}
 
@@ -1238,7 +1274,7 @@ def checkpoint_resumes(device) -> float:
     from repro_torch.train.optimizer import AdamWConfig
     cfg = get_reduced(TRAIN_ARCH)
     opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
-    state, step = setup(cfg, opt, seed=SEED + 25, device=device)
+    state, _, step = setup(cfg, None, opt, seed=SEED + 25, device=device)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)
     batches = [synthetic_batch(dcfg, s, device=device) for s in range(5)]
     for s in range(2):
@@ -1250,7 +1286,8 @@ def checkpoint_resumes(device) -> float:
             saved = state_copy(state)
             straight = [float(step(state, batches[s])[1]["loss"])
                         for s in range(2, 5)]
-            fresh, _ = setup(cfg, opt, seed=SEED + 26, device=device)
+            fresh, _, _ = setup(cfg, None, opt, seed=SEED + 26,
+                                device=device)
             restored = mgr.restore(mgr.latest_step(), fresh)
         finally:
             mgr.close()
@@ -1328,7 +1365,7 @@ def train_full_width(device) -> dict:
                       warmup_steps=max(10, TRAIN_STEPS // 20))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state, step = setup(cfg, opt, seed=SEED + 28, device=device)
+    state, _, step = setup(cfg, None, opt, seed=SEED + 28, device=device)
     _sync(device)
     res = {"cfg": cfg, "opt": opt, "build_peak":
            torch.cuda.max_memory_allocated(),
@@ -1474,6 +1511,415 @@ def print_training(train: dict, launches: dict, card: str) -> None:
     print(f"phase 4g: examples.train_100m at its defaults exited 0 in "
           f"{train['example_s']:.1f} s; phase 4g took {train['phase_s']:.1f} "
           f"s; launches {launches} [{card}]")
+
+
+# -- phase 4h ----------------------------------------------------------------
+
+def vote_check(cfg, opt, mesh, state, batch) -> dict:
+    """Check (a): on the first batch's gradients g (error feedback 0), the
+    compressed step's vote over the one-rank group (pack, NCCL all-gather,
+    majority, scale) equals sign(g + e) · mean|g + e| of each leaf
+    computed plainly on the card: signs exactly, each leaf's scale within
+    1e-6 relative of a float64 mean, the new error feedback exactly g + e
+    − decoded.  Returns the numbers to print and the inputs that time the
+    exchange."""
+    import torch
+
+    from repro_torch.models.transformer import leaf_names
+    from repro_torch.train.train_step import (make_compressed_train_step,
+                                              make_loss_fn)
+    inner, _ = make_compressed_train_step(cfg, opt, mesh)
+    model = state.params
+    named = dict(model.named_parameters())
+    objective, _ = make_loss_fn(cfg, loss_chunk=cfg.loss_chunk)(model, batch)
+    objective.backward()
+    # the reference's leaves: a stacked leaf is every layer's tensor
+    leaves = leaf_names(cfg)
+    keys = [k for names in leaves for k in names]
+    gfs = [named[k].grad.float() + state.error_fb[k] for k in keys]
+    for p in named.values():
+        p.grad = None
+    decoded, new_err = inner.exchange(gfs)
+    worst, i = 0.0, 0
+    for names in leaves:
+        flat = torch.cat([g.reshape(-1) for g in gfs[i:i + len(names)]])
+        dec = torch.cat(decoded[i:i + len(names)])
+        err = torch.cat(new_err[i:i + len(names)])
+        i += len(names)
+        scale = float(flat.abs().double().mean())
+        _check(torch.equal(dec > 0, flat >= 0), f"vote of {names[0]}: a sign "
+               "differs from sign(g + e)")
+        mags = dec.abs()
+        _check(bool((mags == mags[0]).all()), f"{names[0]}: one scale a leaf")
+        worst = max(worst, abs(float(mags[0]) - scale) / max(scale, 1e-30))
+        _check(torch.equal(err, flat - dec), f"{names[0]}: error feedback")
+    _check(worst <= 1e-6, f"leaf scales off by {worst:.3e} relative")
+    return {"scale_err": worst, "leaves": len(leaves), "gfs": gfs,
+            "exchange": inner.exchange}
+
+
+def event_ms(fn, reps: int = 5) -> float:
+    """Median device time of ``fn()`` over ``reps`` calls, CUDA events."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def exchange_ms(check: dict, reps: int = 5) -> dict:
+    """The vote's time on the full-width gradients of check (a), through
+    the step's own ``exchange``: a CUDA event at its start and at each
+    part's end (its ``mark`` hook: scales, concat, pack, all_gather, vote,
+    decode), median over ``reps`` calls after one warm call of the whole
+    and of each part."""
+    import torch
+
+    def one() -> list:
+        marks = [("", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(part):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((part, ev))
+        check["exchange"](check["gfs"], mark=mark)
+        marks[-1][1].synchronize()
+        return marks
+
+    one()
+    runs = []
+    for _ in range(reps):
+        marks = one()
+        parts = {"exchange": marks[0][1].elapsed_time(marks[-1][1])}
+        for (_, a), (part, b) in zip(marks, marks[1:]):
+            parts[part] = parts.get(part, 0.0) + a.elapsed_time(b)
+        runs.append(parts)
+    out = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    out["n"] = sum(g.numel() for g in check["gfs"])
+    out["words"] = -(-out["n"] // 32)
+    return out
+
+
+def timed_steps(step, state, batches) -> tuple:
+    """CUDA-event ms of each step and the metrics, the state after."""
+    import torch
+    events, metrics = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        events.append((start, end))
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events], metrics, state
+
+
+def compressed_full_width(device) -> dict:
+    """Phase 4h (a): Qwen1.5-0.5B at full width and depth through
+    ``launch.train.setup(..., compressed=True, exchange="packed")`` on a
+    (1, 1) mesh over an NCCL group of one rank, 4g's batches and schedule,
+    20 steps; the loss must fall.  Check (a) before the first step; the
+    vote timed on its gradients; then 10 plain steps through ``setup`` on
+    the same mesh (a mesh of one rank places nothing)."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_mesh, init_distributed, setup
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    t0 = time.perf_counter()
+    created = init_distributed(device)
+    try:
+        mesh = build_mesh(device_type="cuda")
+        _check(dist.get_backend() == "nccl" and mesh.size() == 1,
+               f"4h (a) runs on one NCCL rank, not {dist.get_backend()} x "
+               f"{mesh.size()}")
+        cfg = get_config(TRAIN_ARCH)
+        opt = AdamWConfig(lr=3e-4, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(10, TRAIN_STEPS // 20))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, _, step = setup(cfg, mesh, opt, compressed=True,
+                               exchange="packed", seed=SEED + 40,
+                               device=device)
+        _sync(device)
+        res = {"cfg": cfg, "build_peak": torch.cuda.max_memory_allocated(),
+               "params": sum(p.numel() for p in state.params.parameters())}
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+        batches = [synthetic_batch(dcfg, s, device=device)
+                   for s in range(TRAIN_STEPS)]
+        check = vote_check(cfg, opt, mesh, state, batches[0])
+        res["check"] = check["scale_err"], check["leaves"]
+        res["exchange"] = exchange_ms(check)
+        del check
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res["step_ms"], metrics, state = timed_steps(step, state, batches)
+        res["peak"] = torch.cuda.max_memory_allocated()
+        res["losses"] = [float(m["loss"]) for m in metrics]
+        _check(all(math.isfinite(x) for x in res["losses"])
+               and res["losses"][-1] < res["losses"][0],
+               f"compressed full-width training: losses {res['losses']}")
+        del state, step
+        torch.cuda.empty_cache()
+        plain, _, plain_step = setup(cfg, mesh, opt, seed=SEED + 41,
+                                     device=device)
+        res["plain_ms"] = timed_steps(plain_step, plain,
+                                      batches[:DIST_PLAIN_STEPS])[0]
+    finally:
+        if created:
+            dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def dist_model(cfg, seed: int, device):
+    """The reduced model of 4h (b): drawn on the CPU from ``seed`` (the
+    same values on every rank and device), on ``device``."""
+    import torch
+
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.models.transformer import Transformer, model_defs
+    params = init_params(model_defs(cfg), torch.Generator().manual_seed(seed),
+                         device="cpu")
+    return Transformer(cfg, device=device).load_params(
+        tree_map(lambda t: t.to(device), params))
+
+
+def dist_rank(rank: int, world: int, device: str, out_dir: str) -> None:
+    """One rank of phase 4h (b), ``device`` "cuda" (every rank on cuda:0)
+    or "cpu": the compressed exchanges on a (world, 1) mesh, 3 steps each;
+    on the card also the pipeline and the sharded plain step.  Writes its
+    results, and its own launches of each SIMDRAM kernel, to
+    ``out_dir``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.distributed.compat import (
+        shard_map_compat, stage_gloo_all_gather_through_host)
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  stack_stage_params)
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import sharded_step
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_compressed_train_step,
+                                              make_train_step)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        staged = stage_gloo_all_gather_through_host()   # noqa: F841 — kept
+    cfg = dataclasses.replace(get_reduced(TRAIN_ARCH),
+                              compute_dtype="float32")
+    opt = AdamWConfig(lr=DIST_LR, warmup_steps=2, total_steps=6)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8)
+    batches = [synthetic_batch(dcfg, s, device=device)
+               for s in range(DIST_STEPS)]
+    mesh = make_mesh((world, 1), ("data", "model"), device)
+    out = {}
+    for name, (exchange, two_phase) in DIST_EXCHANGES.items():
+        model = dist_model(cfg, SEED + 42, device)
+        state = init_train_state(model, compressed=True)
+        inner, axes = make_compressed_train_step(
+            cfg, opt, mesh, two_phase=two_phase, exchange=exchange)
+        step = shard_map_compat(inner, mesh, set(axes), in_specs=(
+            None, {"tokens": ("data",), "labels": ("data",)}))
+        out[f"{name}/loss"] = np.array([float(step(state, b)[1]["loss"])
+                                        for b in batches])
+        for k, p in model.named_parameters():
+            out[f"{name}/{k}"] = p.detach().cpu().numpy()
+    if device == "cuda":
+        pipe = make_mesh((world,), ("pipe",), device)
+        for name, (m, mb, d, grad) in PIPE_CASES.items():
+            gen = torch.Generator().manual_seed(SEED + 43)
+            ws = [(torch.randn(d, d, generator=gen) * 0.3).to(device)
+                  for _ in range(world)]
+            x = torch.randn(m, mb, d, generator=gen).to(device)
+            w = distribute_tensor(stack_stage_params(ws), pipe, [Shard(0)],
+                                  src_data_rank=None).requires_grad_(grad)
+            y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]), {"w": w},
+                               x, mesh=pipe)
+            seq = [wi.clone().requires_grad_(grad) for wi in ws]
+            h = x
+            for wi in seq:
+                h = torch.tanh(h @ wi)
+            if rank == world - 1:
+                out[f"pipe/{name}/forward"] = np.array(
+                    float((y - h).abs().max()))
+            if grad:
+                (y ** 2).sum().backward()
+                (h ** 2).sum().backward()
+                want = torch.stack([wi.grad for wi in seq])
+                out[f"pipe/{name}/grad"] = np.array(
+                    float((w.grad.full_tensor() - want).abs().max()))
+        mesh22 = make_mesh((2, world // 2), ("data", "model"), device)
+        sharded = dist_model(cfg, SEED + 44, device)
+        tree_shardings(sharded, mesh22)
+        step = sharded_step(make_train_step(cfg, opt), mesh22)
+        state = init_train_state(sharded)
+        out["sharded/loss"] = np.array([float(step(state, b)[1]["loss"])
+                                        for b in batches])
+        single = dist_model(cfg, SEED + 44, device)
+        one = make_train_step(cfg, opt)
+        state = init_train_state(single)
+        out["single/loss"] = np.array([float(one(state, b)[1]["loss"])
+                                       for b in batches])
+        whole = {k: p.full_tensor() if isinstance(p, DTensor) else p
+                 for k, p in sharded.named_parameters()}
+        diffs = [(whole[k] - p).abs() for k, p in single.named_parameters()]
+        out["sharded/param_err"] = np.array(max(float(d.max())
+                                                for d in diffs))
+        out["sharded/param_far"] = np.array(
+            sum(int((d > 1e-5).sum()) for d in diffs)
+            / sum(d.numel() for d in diffs))
+    out.update({f"launches/{name}": np.array(w.launches)
+                for name, w in wrappers.items()})
+    np.savez(f"{out_dir}/{device}_{rank}.npz", **out)
+
+
+def distributed_path(device) -> dict:
+    """Phase 4h: (a) the full-width compressed run, then (b) the ranks on
+    the card and on the CPU; every comparison of (b) checked here."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    res = {"a": compressed_full_width(device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        spawn_ranks(dist_rank, DIST_RANKS, ("cuda", tmp), timeout=300)
+        res["card_ranks_s"] = time.perf_counter() - t1
+        spawn_ranks(dist_rank, DIST_RANKS, ("cpu", tmp), timeout=300)
+        card = [dict(np.load(f"{tmp}/cuda_{r}.npz"))
+                for r in range(DIST_RANKS)]
+        cpus = [dict(np.load(f"{tmp}/cpu_{r}.npz"))
+                for r in range(DIST_RANKS)]
+    res["rank_launches"] = {
+        k.split("/", 1)[1]: sum(int(c[k]) for c in card + cpus)
+        for k in card[0] if k.startswith("launches/")}
+    cpu = cpus[0]
+    bound = 2 * DIST_LR * DIST_STEPS
+    worst = {}
+    for name in DIST_EXCHANGES:
+        loss = np.abs(card[0][f"{name}/loss"] - cpu[f"{name}/loss"]).max() \
+            / np.abs(cpu[f"{name}/loss"]).max()
+        diffs = {k: np.abs(card[0][k] - cpu[k]) for k in cpu
+                 if k.startswith(f"{name}/") and not k.endswith("/loss")}
+        params = max(float(d.max()) for d in diffs.values())
+        # only an element whose vote turned may lie beyond DIST_FAR
+        far = {k: int((d > DIST_FAR).sum()) for k, d in diffs.items()}
+        turned = [k for k, n in far.items()
+                  if n > max(1, 1e-3 * diffs[k].size)]
+        for r in range(1, DIST_RANKS):
+            _check(all(np.array_equal(card[r][k], card[0][k])
+                       for k in card[0] if k.startswith(f"{name}/")),
+                   f"{name}: rank {r} holds other values than rank 0")
+        _check(loss <= TRAIN_LOSS_REL and params <= bound and not turned,
+               f"{name} on the card vs the CPU: loss {loss:.3e} relative "
+               f"(limit {TRAIN_LOSS_REL}), parameters {params:.3e} (bound "
+               f"{bound:.3e}), more than 0.1 % of a leaf beyond {DIST_FAR} "
+               f"in {turned}")
+        worst[name] = (float(loss), params, sum(far.values()))
+    res["exchanges"] = worst
+    pipe = {k: max(float(c[k]) for c in card if k in c) for k in card[-1]
+            if k.startswith("pipe/")}
+    for k, v in pipe.items():
+        _check(v <= (1e-5 if k.endswith("forward") else 1e-4),
+               f"pipeline {k}: {v:.3e} from the sequential composition")
+    res["pipe"] = pipe
+    c0 = card[0]
+    loss = float(np.abs(c0["sharded/loss"] - c0["single/loss"]).max()
+                 / np.abs(c0["single/loss"]).max())
+    _check(loss <= TRAIN_F32_REL and float(c0["sharded/param_err"])
+           <= DIST_LR * DIST_STEPS and float(c0["sharded/param_far"]) <= 1e-3,
+           f"sharded (2, 2) step vs one rank: loss {loss:.3e}, parameters "
+           f"{float(c0['sharded/param_err']):.3e}")
+    res["sharded"] = (loss, float(c0["sharded/param_err"]),
+                      float(c0["sharded/param_far"]))
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def print_distributed(dist: dict, launches: dict, card: str) -> None:
+    """Print phase 4h's numbers, each line of times with the card's name
+    and power limit."""
+    a = dist["a"]
+    cfg, ms = a["cfg"], a["step_ms"]
+    timed = sorted(ms[TRAIN_TIMED_FROM:])
+    median = statistics.median(timed)
+    plain = statistics.median(a["plain_ms"][TRAIN_TIMED_FROM:])
+    ex = a["exchange"]
+    print(f"phase 4h (a): {cfg.name} at full width and depth "
+          f"({a['params']:,} parameters), compressed DP (packed) through "
+          f"launch.train.setup on a (1, 1) mesh over an NCCL group of one "
+          f"rank, {TRAIN_BATCH} x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps: "
+          f"loss {a['losses'][0]:.4f} -> {a['losses'][-1]:.4f} [{card}]")
+    print(f"phase 4h (a): {median:.2f} ms a step (median of steps "
+          f"{TRAIN_TIMED_FROM + 1}-{TRAIN_STEPS}, CUDA events; min "
+          f"{timed[0]:.2f}, max {timed[-1]:.2f}); the plain step on the same "
+          f"mesh {plain:.2f} ms (median of steps {TRAIN_TIMED_FROM + 1}-"
+          f"{DIST_PLAIN_STEPS}) [{card}]")
+    print(f"phase 4h (a): the vote alone on the step's gradients "
+          f"{ex['exchange']:.2f} ms ({100 * ex['exchange'] / median:.1f} % of"
+          f" a step); its parts, timed inside the step's own exchange: leaf "
+          f"scales mean|g + e| {ex['scales']:.2f}, concat {ex['concat']:.2f},"
+          f" pack {ex['pack']:.2f}, all_gather {ex['all_gather']:.3f}, "
+          f"majority {ex['vote']:.2f}, decode and error feedback "
+          f"{ex['decode']:.2f} ms (medians of 5, CUDA events) [{card}]")
+    print(f"phase 4h (a): {ex['n']:,} parameters -> {ex['words']:,} packed "
+          f"words = {4 * ex['words'] / 1e6:.1f} MB a rank a step, against "
+          f"{4 * ex['n'] / 1e9:.3f} GB for a float32 all-reduce")
+    print(f"phase 4h (a): peak {a['build_peak'] / 2**30:.2f} GiB allocated "
+          f"after the build, {a['peak'] / 2**30:.2f} GiB through the steps "
+          f"[{card}]")
+    print(f"phase 4h (a) check: the vote over one rank == sign(g + e) * "
+          f"mean|g + e| on all {a['check'][1]} leaves (signs exact, scales "
+          f"within {a['check'][0]:.2e} relative, limit 1e-6)")
+    print(f"phase 4h (b): {DIST_RANKS} ranks on cuda:0 over gloo "
+          f"({dist['card_ranks_s']:.1f} s with their start); the eager "
+          "collectives (all-gather, all-reduce, all-to-all) take CUDA "
+          "tensors; DTensor's functional all-gather crashes on them and is "
+          "staged through host memory (stage_gloo_all_gather_through_host)")
+    for name, (loss, params, far) in dist["exchanges"].items():
+        print(f"phase 4h (b): compressed {name}, {DIST_STEPS} steps, card vs "
+              f"CPU ({DIST_RANKS} gloo ranks each): loss {loss:.3e} relative "
+              f"(limit {TRAIN_LOSS_REL}), parameters {params:.3e} (bound "
+              f"{2 * DIST_LR * DIST_STEPS:.3e}), {far} elements beyond "
+              f"{DIST_FAR} (at most one or 0.1 % a leaf); ranks equal")
+    for k, v in dist["pipe"].items():
+        print(f"phase 4h (b): {k} on the card vs the sequential composition:"
+              f" {v:.3e}")
+    loss, err, far = dist["sharded"]
+    print(f"phase 4h (b): sharded plain step on a (2, 2) mesh vs one rank, "
+          f"{DIST_STEPS} steps: loss {loss:.3e} relative (limit "
+          f"{TRAIN_F32_REL}), parameters {err:.3e} (bound "
+          f"{DIST_LR * DIST_STEPS:.1e}), {far:.2e} beyond 1e-5")
+    print(f"phase 4h took {dist['seconds']:.1f} s; launches {launches} "
+          f"[{card}]")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1911,6 +2357,17 @@ def parse_args(args: list) -> dict | None:
     return ab_old
 
 
+def kernel_wrappers() -> dict:
+    """The wrappers of the SIMDRAM kernels by name, each with its launch
+    counter."""
+    from repro_torch.kernels.bitplane_transpose import from_planes, to_planes
+    from repro_torch.kernels.bitserial_matmul import bitserial_matmul
+    from repro_torch.kernels.uprog_executor import uprog_execute
+    return {"uprog_execute": uprog_execute, "bitplane_to_planes": to_planes,
+            "bitplane_from_planes": from_planes,
+            "bitserial_matmul": bitserial_matmul}
+
+
 def main() -> int:
     try:
         import torch
@@ -1930,9 +2387,6 @@ def main() -> int:
               f"(KERNEL one of {', '.join(AB_RUNS)})", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.bitplane_transpose import from_planes, to_planes
-    from repro_torch.kernels.bitserial_matmul import bitserial_matmul
-    from repro_torch.kernels.uprog_executor import uprog_execute
 
     card = _smi("name,power.limit")
     print(f"card: {card}")
@@ -1942,9 +2396,7 @@ def main() -> int:
     check_fsm(device, BANKS, WORDS)
     check_bitserial(device)
 
-    wrappers = {"uprog_execute": uprog_execute, "bitplane_to_planes": to_planes,
-                "bitplane_from_planes": from_planes,
-                "bitserial_matmul": bitserial_matmul}
+    wrappers = kernel_wrappers()
     main_kernels = ("uprog_execute", "bitplane_to_planes",
                     "bitplane_from_planes")
     for w in wrappers.values():
@@ -2113,11 +2565,24 @@ def main() -> int:
     del train
     torch.cuda.empty_cache()
 
+    for w in wrappers.values():
+        w.launches = 0
+    distributed = distributed_path(device)
+    # this process's launches and those of the ranks 4h (b) spawned
+    dist_launches = {name: w.launches + distributed["rank_launches"][name]
+                     for name, w in wrappers.items()}
+    print_distributed(distributed, dist_launches, card)
+    _check(not any(dist_launches.values()), "a SIMDRAM kernel launched on "
+           f"the distributed path: {dist_launches}")
+    del distributed
+    torch.cuda.empty_cache()
+
     by_path = {"main": launches, "applications/unrolled":
                app_launches["unrolled"], "applications/kernel":
                app_launches["kernel"], "serving": serve_launches,
                "sampler": sampler_launches, "lm_serving": lm_launches,
-               "lm_moe": moe_launches, "training": train_launches}
+               "lm_moe": moe_launches, "training": train_launches,
+               "distributed": dist_launches}
     for row in kernels:
         wrapper = row["name"].split("/")[0]
         row["launches_by_path"] = {path: counts.get(wrapper, 0)

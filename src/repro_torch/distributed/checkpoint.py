@@ -1,17 +1,26 @@
-"""Asynchronous, atomic checkpointing of a training state, one process.
+"""Sharded, asynchronous, atomic, *elastic* checkpointing of a training
+state.
 
 The reference's protocol (:mod:`repro.distributed.checkpoint`) on torch
-tensors:
+tensors and DTensors:
 
 * each leaf is saved as one or more ``.npy`` chunk files along its first
-  axis, with a JSON manifest recording the leaves' shapes and dtypes, the
-  chunk counts, the step and the mesh axes it was saved under (none here:
-  the mesh argument is accepted and recorded as ``[]`` without a mesh);
-* a save copies every tensor to host memory synchronously (the next
-  in-place training step may then change the live tensors) and writes on a
-  background thread, atomically (into a unique ``.tmp`` directory, then a
-  rename), so a crash mid-save never corrupts the latest checkpoint; older
-  checkpoints beyond ``max_to_keep`` are removed;
+  axis, with a JSON manifest recording the leaves' global shapes and
+  dtypes, the chunk counts, the step and the dimension names of the mesh
+  it was saved under (``[]`` without one);
+* a save gathers every DTensor leaf to its full value (``full_tensor()``,
+  a collective: every rank of the mesh calls ``save``), copies every
+  tensor to host memory synchronously (the next in-place training step may
+  then change the live tensors), and rank 0 of the default process group
+  (the only process without one) writes on a background thread,
+  atomically (into a unique ``.tmp`` directory, then a rename), so a crash
+  mid-save never corrupts the latest checkpoint; older checkpoints beyond
+  ``max_to_keep`` are removed.  A blocking save ends in a barrier, so every
+  rank may read the checkpoint once it returns;
+* restore is **elastic**: the full arrays are re-placed under the *target*
+  mesh's placements — each DTensor leaf of ``like`` takes its own block,
+  and ``shardings`` may place plain leaves — so a checkpoint saved on one
+  mesh restores onto another;
 * ``latest_step`` + ``restore`` give crash-recovery semantics for the
   failover runner.
 
@@ -27,11 +36,13 @@ import json
 import os
 import shutil
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 _SEP = "__"
 
@@ -73,14 +84,22 @@ class CheckpointManager:
     # ------------------------------------------------------------- save
     def save(self, step: int, state, mesh=None, blocking: bool = False):
         """Snapshot to host memory synchronously (a copy, never a view of a
-        CPU tensor), write asynchronously.  Returns the write's future."""
-        host = {k: t.detach().to("cpu", copy=True).numpy()
+        CPU tensor; DTensors gathered whole), write asynchronously on rank
+        0.  Returns the write's future (already done on other ranks)."""
+        host = {k: _full(t).detach().to("cpu", copy=True).numpy()
                 for k, t in state_leaves(state).items()}
-        fut = self._pool.submit(self._write, step, host,
-                                list(mesh.axis_names) if mesh else [])
-        self._pending.append(fut)
+        if _rank() == 0:
+            fut = self._pool.submit(
+                self._write, step, host,
+                list(mesh.mesh_dim_names) if mesh is not None else [])
+            self._pending.append(fut)
+        else:
+            fut = Future()
+            fut.set_result(None)
         if blocking:
             fut.result()
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                dist.barrier()
         return fut
 
     def _write(self, step: int, host: dict, mesh_axes: list) -> None:
@@ -143,16 +162,21 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, like):
-        """Restore checkpoint ``step`` into ``like``'s own tensors, in place
-        (a full-width state is not held twice), and return ``like``.  A
-        leaf absent at save time keeps its value; a leaf whose saved shape
-        or dtype differs raises ``ValueError``, as does a ``meta`` leaf
-        (it has no storage to restore into)."""
+    def restore(self, step: int, like, shardings: dict | None = None):
+        """Restore checkpoint ``step`` into ``like`` and return it.  Each
+        leaf is written in place (a full-width state is not held twice): a
+        DTensor leaf takes its own block of the saved array under its own
+        mesh and placements.  ``shardings`` (``{leaf key: (mesh,
+        placements)}``) re-places the leaves it names instead: each becomes
+        a new DTensor of the saved values (a parameter stays a
+        parameter).  A leaf absent at save time keeps its value; a leaf
+        whose saved shape or dtype differs raises ``ValueError``, as does a
+        ``meta`` leaf (it has no storage to restore into)."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         leaves = state_leaves(like)
+        shardings = shardings or {}
         with torch.no_grad():
             for key, meta in manifest["leaves"].items():
                 if key not in leaves:
@@ -169,5 +193,43 @@ class CheckpointManager:
                         f"checkpoint leaf {key!r} is {src.dtype}"
                         f"{list(src.shape)}; cannot restore it into "
                         f"{dst.dtype}{list(dst.shape)} on {dst.device}")
-                dst.copy_(src)
+                if key in shardings:
+                    mesh, placements = shardings[key]
+                    _set_leaf(like, key.split(_SEP), distribute_tensor(
+                        src.to(mesh.device_type), mesh, list(placements),
+                        src_data_rank=None))
+                elif isinstance(dst, DTensor):
+                    dst.to_local().copy_(distribute_tensor(
+                        src, dst.device_mesh, dst.placements,
+                        src_data_rank=None).to_local())
+                else:
+                    dst.copy_(src)
         return like
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _set_leaf(tree, parts: list[str], value) -> None:
+    """Replace the leaf at checkpoint key ``parts`` of ``tree``."""
+    head, rest = parts[0], parts[1:]
+    if isinstance(tree, nn.Module):
+        owner, _, leaf = head.rpartition(".")
+        mod = tree.get_submodule(owner) if owner else tree
+        old = getattr(mod, leaf)
+        mod.register_parameter(leaf, nn.Parameter(
+            value, requires_grad=old.requires_grad))
+    elif dataclasses.is_dataclass(tree):
+        if rest:
+            _set_leaf(getattr(tree, head), rest, value)
+        else:
+            setattr(tree, head, value)
+    elif rest:
+        _set_leaf(tree[head], rest, value)
+    else:
+        tree[head] = value

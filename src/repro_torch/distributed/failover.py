@@ -1,5 +1,5 @@
 """Fault-tolerant training loop: checkpoint/restart, step retry and
-straggler detection, on one process.
+straggler detection.
 
 The reference's runner (:mod:`repro.distributed.failover`) with injectable
 failure hooks, so the logic is testable on one host:
@@ -81,9 +81,11 @@ class FailoverRunner:
         self.events: list[str] = []
 
     def run(self, state, batch_fn: Callable[[int], Any], start_step: int,
-            num_steps: int, mesh=None):
+            num_steps: int, mesh=None, shardings=None):
         """Run ``num_steps`` steps with retry + periodic checkpointing.
-        Returns (state, metrics_history)."""
+        ``mesh`` is recorded in each checkpoint, ``shardings`` passed to a
+        restore (:meth:`CheckpointManager.restore`).  Returns (state,
+        metrics_history)."""
         history = []
         step = start_step
         while step < start_step + num_steps:
@@ -100,7 +102,7 @@ class FailoverRunner:
                     self.events.append(f"step {step} attempt {attempt} "
                                        f"failed: {type(e).__name__}")
                     if attempt >= self.cfg.max_retries:
-                        state = self._restore(state)
+                        state = self._restore(state, shardings)
                         step = int(state.opt.step)
                         self.events.append(f"restored at step {step}")
                         new_state, metrics = None, None
@@ -119,9 +121,9 @@ class FailoverRunner:
         self.ckpt.save(step, state, mesh, blocking=True)
         return state, history
 
-    def _restore(self, like_state):
+    def _restore(self, like_state, shardings=None):
         self.ckpt.wait()       # a periodic save may still be writing
         latest = self.ckpt.latest_step()
         if latest is None:
             raise RuntimeError("no checkpoint to restore from")
-        return self.ckpt.restore(latest, like_state)
+        return self.ckpt.restore(latest, like_state, shardings)

@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     cfg = CONFIG_100M
     opt = AdamWConfig(lr=6e-4, total_steps=args.steps,
                       warmup_steps=max(5, args.steps // 20))
-    state, step = setup(cfg, opt, device=args.device)
+    state, _, step = setup(cfg, None, opt, device=args.device)
     n = sum(p.numel() for p in state.params.parameters())
     print(f"{cfg.name}: {n/1e6:.1f}M params on {args.device}")
 

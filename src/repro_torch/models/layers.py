@@ -30,8 +30,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import routing_placements
 from .params import ParamDef
 
 P = ParamDef
@@ -205,11 +207,36 @@ def _flash_attn(q, k, v, causal: bool, q_offset: int = 0, kv_len=None,
     return out[:, :s].to(v.dtype)
 
 
+def _blockwise(fn, q, *rest):
+    """``fn(q, *rest)`` — attention, independent per batch row and head —
+    on each rank's block when the operands are DTensors (placed over batch
+    and heads, as the sharding rules place activations), the result placed
+    like ``q``.  DTensor runs an einsum as one ``bmm`` over its flattened
+    batch dims, and torch 2.11 refuses to flatten (batch, heads) when both
+    are sharded (``aten._unsafe_view``: "Attempted to flatten multiple
+    dimensions"); this is the explicit redistribution at that op.
+    Partial sums (a projection of a partial input) are summed first, and
+    operands placed unlike each other on a mesh dimension (KV heads that
+    replicate where the query heads shard) are replicated there."""
+    if not isinstance(q, DTensor):
+        return fn(q, *rest)
+    mesh = q.device_mesh
+    same = [p if not p.is_partial() and all(t.placements[i] == p
+                                            for t in rest) else Replicate()
+            for i, p in enumerate(q.placements)]
+    ts = [t if list(t.placements) == same else t.redistribute(mesh, same)
+          for t in (q, *rest)]
+    return DTensor.from_local(fn(*(t.to_local() for t in ts)), mesh, same,
+                              run_check=False)
+
+
 def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
     s, t = q.shape[1], k.shape[1]
     if s * t <= FLASH_THRESHOLD * FLASH_THRESHOLD:
-        return _sdpa_naive(q, k, v, causal, q_offset)
-    return _flash_attn(q, k, v, causal, q_offset)
+        return _blockwise(lambda q, k, v: _sdpa_naive(q, k, v, causal,
+                                                      q_offset), q, k, v)
+    return _blockwise(lambda q, k, v: _flash_attn(q, k, v, causal,
+                                                  q_offset), q, k, v)
 
 
 def _masked_decode_attn(q, k, v, q_pos: int):
@@ -286,14 +313,16 @@ class Attention(nn.Module):
             cv, cvs = _write(cache["v"], vq, p), _write(cache["v_scale"], vs, p)
             kd = ck.to(dt) * cks.to(dt)[..., None]
             vd = cv.to(dt) * cvs.to(dt)[..., None]
-            y = _masked_decode_attn(q, kd, vd, p)
+            y = _blockwise(lambda q, k, v: _masked_decode_attn(q, k, v, p),
+                           q, kd, vd)
             new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs,
                          "pos": p + q.shape[1]}
         else:
             p = cache["pos"]
             ck = _write(cache["k"], k, p)
             cv = _write(cache["v"], v, p)
-            y = _masked_decode_attn(q, ck.to(dt), cv.to(dt), p)
+            y = _blockwise(lambda q, k, v: _masked_decode_attn(q, k, v, p),
+                           q, ck.to(dt), cv.to(dt))
             new_cache = {"k": ck, "v": cv, "pos": p + q.shape[1]}
         y = torch.einsum("bshk,hkd->bsd", y, self.wo.to(dt))
         return y, new_cache
@@ -468,6 +497,21 @@ def moe_defs(cfg: ModelConfig):
 MOE_GROUP = 256        # tokens per routing group (bounds dispatch memory)
 
 
+def _routing_groups(x, ng: int):
+    """``x`` (B,S,d) as the MoE runs on it, and the inverse to apply to the
+    (B,S,d) output.  A DTensor ``x`` is redistributed explicitly to the
+    layout :func:`~repro_torch.distributed.sharding.routing_placements`
+    gives for ``ng`` groups, and the output goes back to ``x``'s layout."""
+    if not isinstance(x, DTensor):
+        return x, lambda y: y
+    mesh, placed = x.device_mesh, list(x.placements)
+    target = routing_placements(mesh, ng)
+    if target == placed:
+        return x, lambda y: y
+    back = [Replicate() if p.is_partial() else p for p in placed]
+    return x.redistribute(mesh, target), lambda y: y.redistribute(mesh, back)
+
+
 class MoE(nn.Module):
     """Top-k capacity-based MoE with the reference's dispatch/combine
     einsums: tokens route in groups of ``MOE_GROUP`` (halved until it
@@ -508,6 +552,7 @@ class MoE(nn.Module):
         while t_total % gs:
             gs //= 2
         ng = t_total // gs
+        x, unroute = _routing_groups(x, ng)
         tokens = x.reshape(ng, gs, d)
         probs, gate_vals, gate_idx = self.route(tokens)
         capacity = max(1, int(cfg.capacity_factor * gs * k / e))
@@ -520,19 +565,22 @@ class MoE(nn.Module):
         dispatch = within[..., None] * (pos[..., None] == slots).float()
         combine = torch.einsum("gske,gsk->gse", onehot, gate_vals)
         combine = combine[..., None] * dispatch                 # (G, S, E, C)
-        xs = torch.einsum("gsec,gsd->gecd", dispatch.to(dt), tokens)
-        g = torch.einsum("gecd,edf->gecf", xs, self.w_gate.to(dt))
-        u = torch.einsum("gecd,edf->gecf", xs, self.w_up.to(dt))
-        ys = torch.einsum("gecf,efd->gecd", F.silu(g) * u,
+        # the reference's gecd layout with the expert axis leading, so each
+        # expert einsum is a batched matmul over contiguous (g, c) rows:
+        # the same products, and no view of a permuted shard for DTensor
+        xs = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), tokens)
+        g = torch.einsum("egcd,edf->egcf", xs, self.w_gate.to(dt))
+        u = torch.einsum("egcd,edf->egcf", xs, self.w_up.to(dt))
+        ys = torch.einsum("egcf,efd->egcd", F.silu(g) * u,
                           self.w_down.to(dt))
-        out = torch.einsum("gsec,gecd->gsd", combine.to(dt), ys)
+        out = torch.einsum("gsec,egcd->gsd", combine.to(dt), ys)
         if cfg.n_shared_experts:
             out = out.reshape(b, s, d) + self.shared(x)
         # auxiliary load-balance loss
         me = probs.mean((0, 1))
         ce = assign.mean((0, 1)) / k
         aux = e * torch.sum(me * ce)
-        return out.reshape(b, s, d), aux
+        return unroute(out.reshape(b, s, d)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +647,19 @@ def _ssd_chunked(xh, a, b, c, chunk: int, f32: bool = True):
     return (y_intra + y_inter).reshape(bs, s, nh, hd)
 
 
+def _batch_sharded_only(t):
+    """``t`` with every shard but the batch dimension's replicated, for a
+    DTensor: the decode caches shard the SSM state's head dimension over
+    ``model`` (the reference's cache rule), and DTensor then shards the
+    recurrence over the 24 heads unevenly and cannot flatten them — the
+    explicit redistribution at that op."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_shard() and p.dim != 0 else p
+        for p in t.placements])
+
+
 def _softplus(x):
     """``jax.nn.softplus``: log(1 + eˣ) without torch's linear cut-off."""
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -660,10 +721,11 @@ class SSMMixer(nn.Module):
                              f32=cfg.ssd_f32)
         else:
             # single-token recurrence: h' = a·h + x⊗B ; y = h'·C
+            xh = _batch_sharded_only(xh)
             h = cache["state"]
-            h_new = (h * a[:, 0, :, None, None]
-                     + torch.einsum("bhd,bn->bhdn", xh[:, 0],
-                                    bmat[:, 0].float()))
+            h_new = _batch_sharded_only(
+                h * a[:, 0, :, None, None]
+                + torch.einsum("bhd,bn->bhdn", xh[:, 0], bmat[:, 0].float()))
             y = torch.einsum("bhdn,bn->bhd", h_new, cmat[:, 0].float())
             y = y[:, None].reshape(b_, 1, nh, hd)
             h.copy_(h_new)

@@ -4,8 +4,8 @@ of :mod:`repro_torch.models` never drift apart.
 
 A definition tree is a nested ``dict`` whose leaves are :class:`ParamDef`;
 ``init_params`` turns it into the same tree of tensors.  Model code only
-names logical axes (mapped to mesh axes by the distributed layer, which is
-not ported yet):
+names logical axes (mapped to mesh axes by
+:mod:`repro_torch.distributed.sharding`):
 
   embed     d_model dims                (replicated)
   vocab     vocabulary                  → 'model'

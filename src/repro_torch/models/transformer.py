@@ -29,7 +29,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -200,6 +202,21 @@ def model_defs(cfg: ModelConfig):
     return defs
 
 
+def _layer_names(path: str, n_layers: int) -> list[str]:
+    head, _, rest = path.partition(".")
+    if head in STACKED:
+        return [f"{head}.{i}.{rest}" for i in range(n_layers)]
+    return [path]
+
+
+def leaf_names(cfg: ModelConfig) -> list[list[str]]:
+    """The :class:`Transformer`'s parameter names of each ``model_defs(cfg)``
+    leaf, in the reference's leaf order: one per layer (the leaf's leading
+    axis) for a stacked subtree."""
+    return [_layer_names(path, d.shape[0])
+            for path, d in tree_leaves(model_defs(cfg))]
+
+
 class Transformer(nn.Module):
     """The LM of any family.  Parameter names follow the reference's tree
     with the stacked subtrees unstacked into ``<name>.<i>`` (``embed``,
@@ -243,11 +260,9 @@ class Transformer(nn.Module):
     def _names(self, path: str) -> list[str]:
         """The module's parameter names of a ``model_defs`` leaf: one per
         layer for a stacked subtree, in layer order."""
-        head, _, rest = path.partition(".")
-        if head in STACKED:
-            return [f"{head}.{i}.{rest}" for i in range(len(getattr(self,
-                                                                    head)))]
-        return [path]
+        head = path.partition(".")[0]
+        return _layer_names(path, len(getattr(self, head))
+                            if head in STACKED else 1)
 
     def load_params(self, tree) -> "Transformer":
         """Copy a parameter tree shaped like ``model_defs(cfg)`` (tensors on
@@ -313,7 +328,7 @@ class Transformer(nn.Module):
         # the gather commutes with the reference's cast of the whole table;
         # in bf16 the backward's scatter-add of repeated tokens then sums in
         # float32 here and in bf16 there (within the bf16 tolerance)
-        x = self.embed[tokens].to(dt)
+        x = F.embedding(tokens, _whole_table(self.embed)).to(dt)
         start = int(caches["pos"]) if caches is not None else 0
         positions = batch.get("positions")
         if positions is None:
@@ -428,6 +443,20 @@ def check_cfg(model: Transformer, cfg: ModelConfig) -> None:
     if cfg is not model.cfg and cfg != model.cfg:
         raise ValueError(f"cfg {cfg.name!r} is not the model's config "
                          f"({model.cfg.name!r} with other fields)")
+
+
+def _whole_table(embed):
+    """The embedding table for a lookup, gathered over the mesh dimensions
+    that shard its vocabulary (a DTensor), explicitly: DTensor's
+    vocab-parallel lookup leaves masked partial sums that torch 2.11
+    cannot reduce after a later op, nor take the gradient of, and its rule
+    for an index's backward (``index_put``) fails there too.  The
+    gradient goes back to the table's shards by the redistribution's own
+    backward (a local slice)."""
+    if not isinstance(embed, DTensor):
+        return embed
+    return embed.redistribute(embed.device_mesh,
+                              [Replicate()] * embed.device_mesh.ndim)
 
 
 def _call(remat: bool, fn, *args):

@@ -1,6 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module loads
-neither JAX nor any module of the reference package ``repro``, and no
-source file of the port names either in an import."""
+neither JAX nor any module of the reference package ``repro`` and
+initialises no process group, no source file of the port names either
+package in an import, and every module of the reference has its
+counterpart."""
 import ast
 import json
 import os
@@ -30,13 +32,15 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import importlib, json, sys\n"
         f"mods = {port_modules()!r}\n"
         "for m in mods: importlib.import_module(m)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'a process group at import'\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] "
         "in ('jax', 'jaxlib', 'repro'))))\n")
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(port_modules()) >= 63
+    assert len(port_modules()) >= 69
     # the serving slice: configs, server, sampler and launcher
     assert {"repro_torch.configs", "repro_torch.configs.base",
             "repro_torch.serve", "repro_torch.serve.batching",
@@ -57,6 +61,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.distributed", "repro_torch.distributed.checkpoint",
             "repro_torch.distributed.failover", "repro_torch.launch.train",
             "repro_torch.examples.train_100m"} <= set(port_modules())
+    # the distributed and launch slice
+    assert {"repro_torch.distributed.compat",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb"} \
+        <= set(port_modules())
 
 
 def test_port_sources_import_no_jax_and_no_repro():
@@ -94,7 +104,9 @@ def test_every_sliced_reference_module_has_a_counterpart():
                 "train/__init__.py", "train/optimizer.py", "train/data.py",
                 "train/train_step.py", "distributed/__init__.py",
                 "distributed/checkpoint.py", "distributed/failover.py",
-                "launch/train.py"):
+                "launch/train.py", "distributed/compat.py",
+                "distributed/pipeline.py", "distributed/sharding.py",
+                "launch/mesh.py", "launch/dryrun.py", "launch/hillclimb.py"):
         assert (ref / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     # the applications example becomes a module of the port

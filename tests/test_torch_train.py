@@ -581,9 +581,16 @@ def test_launch_train_on_the_cpu_exits_0(tmp_path):
 
 
 def test_launch_train_refuses_compressed(tmp_path, capsys):
+    """``--compressed`` was refused until the majority-vote exchange was
+    ported; now it trains, here as a world of one over gloo, and leaves
+    no process group behind."""
     assert port_launch.main(["--device", "cpu", "--reduced", "--compressed",
-                             "--ckpt-dir", str(tmp_path)]) != 0
-    assert "torch.distributed" in capsys.readouterr().err
+                             "--steps", "6", "--batch", "4", "--seq", "32",
+                             "--lr", "5e-3", "--log-every", "1",
+                             "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "compressed=True" in out and "final loss" in out
+    assert not torch.distributed.is_initialized()
 
 
 def test_launch_train_resumes_from_its_checkpoint(tmp_path, capsys):
@@ -602,10 +609,11 @@ def test_setup_runs_on_cuda_unless_asked(monkeypatch):
     _, pcfg = configs()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        port_launch.setup(pcfg, port_opt.AdamWConfig())
+        port_launch.setup(pcfg, None, port_opt.AdamWConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         port_data.synthetic_batch(port_data.DataConfig(), 0)
-    state, _ = port_launch.setup(pcfg, port_opt.AdamWConfig(), device="cpu")
+    state, _, _ = port_launch.setup(pcfg, None, port_opt.AdamWConfig(),
+                                    device="cpu")
     assert state.params.device.type == "cpu"
 
 
