@@ -17,7 +17,9 @@ Phases, each fatal on failure:
    bits and one fused chain trace; and on seeded synthetic streams whose
    ports alias (MAJ with a == b or a == -c, COPY onto its own source) at
    R 3/32/235 on 3 × 97 words, N 600 (above one staged chunk of 256 and
-   not a multiple of it);
+   not a multiple of it); and the μProgram-level entry
+   ``run_uprogram_kernel`` on the card against its CPU run, exactly, at
+   addition, greater and if_else, 8 bits, 16 × 2,048 words;
 2b. the XNOR-popcount kernel against its plain version at VGG-16's
    binarized FC6 and FC7 (batch 256), the applications example's layer, a
    ragged edge (M 33, N 100, K 160), a K tail after a whole k-tile (M 17,
@@ -116,6 +118,22 @@ Phases, each fatal on failure:
    on a (2, 2) mesh against one rank (1e-4; parameters within lr a step);
    the launch counters, this process's and each spawned rank's (saved
    beside its results), must read 0;
+4i. (run after 4f, before 4g) the hybrid and enc-dec serving paths:
+   checks (a) as in 4e at full width for Zamba2-7B (12 layers, two calls
+   of the shared block) and Whisper-large-v3 (2 + 2 layers over all 1,500
+   encoder frames, drawn from a seed, which prime the cached run's caches
+   and join every forward); then Zamba2-7B (81 SSM layers, d_model 3,584,
+   112 SSM heads, the weight-tied attention block called 13 times, vocab
+   32,000) and Whisper-large-v3 (32 + 32 layers, d_model 1,280, vocab
+   51,866, encoder frames (16, 1,500, 1,280) bf16 through ``greedy_decode``'s
+   ``extra_batch``), each at full width and depth, drawn in place on the
+   card from a seed, bf16 compute, greedily decode 32 tokens for 16
+   sequences after a 128-token prompt with each sampler, timed as in 4e,
+   checks (b) and (c), 3·log2(padded vocab) − 3 FSM and 3 transposition
+   launches a token (45 and 48 FSM); prints peak memory, Whisper's
+   priming of its caches, the device's busy share, the copy kernels' device
+   time (the per-use weight casts), the torch ops a decode step and the
+   sampler's modeled ns/nJ a token, each model freed before the next;
 5. (run before 4e, printed after it) kernel times with CUDA events and
    the profiler (a trace that lost kernel events against the launch
    counter is taken again) beside the plain versions', the bound and, for the XNOR kernel, ``torch._int_mm``; the
@@ -143,8 +161,9 @@ An earlier source comes from git, e.g.
 ``git show 9a3d5b9:src/repro_torch/kernels/csrc/uprog_executor.cu``, into
 a git-ignored directory such as ``build/ab_old/``.
 
-Phases 4, 4b, 4c, 4d, 4e and 4f each set every kernel's launch counter to 0
-before the path and fail if a kernel of that path did not launch; phases 4g
+Phases 4, 4b, 4c, 4d, 4e, 4f and 4i each set every kernel's launch counter
+to 0 before the path and fail if a kernel of that path did not launch
+(the LM paths count one in-DRAM-sampler ``greedy_decode``); phases 4g
 and 4h set them to 0 and fail if any kernel launched (no SIMDRAM kernel lies
 on the training or the distributed path).  Every
 comparison of integers is exact; float logits are compared within the
@@ -183,6 +202,10 @@ SMALL_GROUPS = (37, 300)        # below one to-planes block; not a multiple
 # (R, N) of phase 3's synthetic streams: N above one staged chunk of 256
 # commands and not a multiple of it
 ALIASED_STREAMS = ((3, 600), (32, 600), (235, 600))
+# phase 3's μProgram-level entry at 8 bits: op → (input planes, out_bits)
+UPROGRAM_CASES = {"addition": ({"a": 8, "b": 8}, None),
+                  "greater": ({"a": 8, "b": 8}, {"out": 1}),
+                  "if_else": ({"a": 8, "b": 8, "sel": 1}, None)}
 FSM_TIMED = (("multiplication", 8), ("division", 32))
 APP_IMAGE = (1024, 1024)        # 16 banks × 65,536 lanes: one full pass
 APP_CODES = 4 * BANKS * LANES   # four passes of the scan
@@ -210,6 +233,14 @@ MOE_CHECKS = (("olmoe-1b-7b", 2), ("deepseek-v2-236b", 2),
               ("mamba2-130m", None))
 REDUCED_FAMILIES = ("olmoe-1b-7b", "deepseek-v2-236b", "mamba2-130m",
                     "zamba2-7b", "whisper-large-v3")
+# phase 4i: Zamba2-7B (hybrid) and Whisper-large-v3 (enc-dec) at full width
+# and depth, 4e's shape; checks (a) at full width, Zamba2 at 12 layers (two
+# calls of the shared block), Whisper at 2 + 2 layers over all 1,500 frames;
+# the profiles cover PROFILED_STEPS cached decode steps after a prefill
+HYBRID_ARCHS = ("zamba2-7b", "whisper-large-v3")
+HYBRID_CHECKS = (("zamba2-7b", 12), ("whisper-large-v3", 2))
+HYBRID_REPEATS = 3
+PROFILED_STEPS = 4
 # phase 4g: Qwen1.5-0.5B trained at full width and depth through the
 # launcher's setup, at its defaults (batch 8 × seq 256), 20 steps, steps
 # 3–20 timed; check (a) at full width cut to 2 layers, batch 2 × 64;
@@ -368,6 +399,36 @@ def check_fsm(device, banks: int, words: int, full: bool = True) -> None:
                f"uprog_execute aliased R={n_rows}", "uprog_execute")
         print(f"phase 3: FSM kernel == plain on an aliased stream "
               f"(R={n_rows}, steps={n_cmds}, 3x97 words)")
+
+
+def check_uprogram_entry(device, banks: int, words: int) -> None:
+    """The μProgram-level entry ``run_uprogram_kernel`` on the card (the FSM
+    kernel) against the same call on the CPU (its plain version), exactly,
+    on seeded banked planes of every bit pattern."""
+    import torch
+
+    from repro_torch.core.trace import compile_trace
+    from repro_torch.kernels.ops import run_uprogram_kernel
+    for k, (op, (inputs, out_bits)) in enumerate(UPROGRAM_CASES.items()):
+        prog = compile_trace(op, 8)[0]
+        g = torch.Generator().manual_seed(SEED + 50 + k)
+        operands = {name: torch.randint(-2**31, 2**31, (banks, n, words),
+                                        dtype=torch.int32, generator=g)
+                    for name, n in inputs.items()}
+        want = run_uprogram_kernel(prog, operands, out_bits)
+        got = run_uprogram_kernel(
+            prog, {name: t.to(device) for name, t in operands.items()},
+            out_bits)
+        _check(sorted(got) == sorted(want), f"run_uprogram_kernel {op}: "
+               f"outputs {sorted(got)}")
+        for name, planes in want.items():
+            _check(got[name].device.type == torch.device(device).type,
+                   f"run_uprogram_kernel {op}: {name} left the card")
+            _equal(got[name].cpu(), planes,
+                   f"run_uprogram_kernel {op}/8b {name}", "uprog_execute")
+        print(f"phase 3: run_uprogram_kernel({op}/8b) on the card == the "
+              f"CPU run ({banks}x{words} words, out planes "
+              f"{tuple(want['out'].shape)})")
 
 
 def aliased_stream(n_rows: int, n_cmds: int, seed: int):
@@ -717,6 +778,20 @@ def lm_tokens(cfg, shape: tuple, seed: int, device):
                            device=device)
 
 
+def lm_extra(cfg, b: int, seed: int, device, dtype) -> dict:
+    """``greedy_decode``'s ``extra_batch`` for ``cfg``: an enc-dec model's
+    encoder frames (b, encoder_seq, d_model), drawn on ``device`` from a
+    seeded generator (the conv frontend is a stub in both packages); empty
+    for every other family."""
+    import torch
+    if not cfg.enc_dec:
+        return {}
+    g = torch.Generator(device=device).manual_seed(seed)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device=device) * 0.1
+    return {"encoder_frames": frames.to(dtype)}
+
+
 def decode_matches_prefill(device, arch: str, n_layers: int | None,
                            seed: int) -> float:
     """Check (a): at full width in float32 compute (``n_layers`` layers, or
@@ -724,32 +799,45 @@ def decode_matches_prefill(device, arch: str, n_layers: int | None,
     cached steps of 2 sequences equal a no-cache forward within 2e-3 (the
     CPU tests' bound), TF32 off.  An MoE runs at capacity factor
     ceil(E / k) (8.0 for OLMoE), where no group drops a token, so one-token
-    groups route as the whole sequence does.  Returns the largest
-    difference."""
+    groups route as the whole sequence does.  A layer pattern is cut with
+    the depth; an enc-dec model keeps ``n_layers`` encoder layers too and
+    all its frames, drawn from the seed: they join the no-cache forward and
+    every cached step, whose caches ``prime_encdec_caches`` primes first,
+    as ``greedy_decode`` does.  Returns the largest difference."""
     import dataclasses
     import math
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import init_caches
+    from repro_torch.models.transformer import (init_caches,
+                                                prime_encdec_caches)
     _check(not torch.backends.cuda.matmul.allow_tf32,
            "TF32 matmul is on; the float32 checks need it off")
     cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
     if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        cut = {"n_layers": n_layers}
+        if cfg.layer_pattern:
+            cut["layer_pattern"] = cfg.layer_pattern[:n_layers]
+        if cfg.enc_dec:
+            cut["n_encoder_layers"] = n_layers
+        cfg = dataclasses.replace(cfg, **cut)
     if cfg.moe:
         cfg = dataclasses.replace(cfg, capacity_factor=float(
             math.ceil(cfg.n_experts / cfg.experts_per_tok)))
     model = lm_model(cfg, device, seed)
     b, s = 2, LM_CHECK_STEPS
     toks = lm_tokens(cfg, (b, s), seed + 1, device)
+    extra = lm_extra(cfg, b, seed + 2, device, torch.float32)
     with torch.no_grad():
-        full = model({"tokens": toks})[0]
+        full = model({"tokens": toks, **extra})[0]
     caches = init_caches(cfg, b, s, dtype=torch.float32, device=device)
+    if extra:
+        caches = prime_encdec_caches(model, cfg, extra, caches)
     outs = []
     for t in range(s):
-        logits, _, caches = model({"tokens": toks[:, t:t + 1]}, caches)
+        logits, _, caches = model({"tokens": toks[:, t:t + 1], **extra},
+                                  caches)
         outs.append(logits)
     err = float((torch.cat(outs, 1) - full).abs().max())
     _check(err < LM_SELF_ABS, f"{cfg.name}: cached decode differs from the "
@@ -760,14 +848,15 @@ def decode_matches_prefill(device, arch: str, n_layers: int | None,
 
 
 def lm_generate(model, cfg, prompt, sampler: str, machine=None,
-                perf=None) -> tuple:
-    """One ``greedy_decode`` call: (token ids, host seconds, prefill ms, ms a
-    decoded token).  CUDA events at the start and end of every forward
-    split the same run on the card's clock: the prefill is the first
-    forward; each of the ``LM_NEW − 1`` later tokens is one cached step
-    forward and its pick (from the start of the first step forward to the
-    end of the last pick).  The first token's pick and the cache
-    allocation are in neither figure."""
+                perf=None, extra=None) -> tuple:
+    """One ``greedy_decode`` call (``extra`` its ``extra_batch``): (token
+    ids, host seconds, prefill ms, ms a decoded token).  CUDA events at the
+    start and end of every forward split the same run on the card's clock:
+    the prefill is the first forward; each of the ``LM_NEW − 1`` later
+    tokens is one cached step forward and its pick (from the start of the
+    first step forward to the end of the last pick).  The first token's
+    pick and the cache allocation (and an enc-dec model's priming of the
+    caches) are in neither figure."""
     import torch
 
     from repro_torch.serve.decode import greedy_decode
@@ -782,7 +871,8 @@ def lm_generate(model, cfg, prompt, sampler: str, machine=None,
         t0 = time.perf_counter()
         out = greedy_decode(model, cfg, prompt, steps=LM_NEW,
                             max_seq=LM_PROMPT + LM_NEW, sampler=sampler,
-                            sampler_perf=perf, machine=machine)
+                            sampler_perf=perf, machine=machine,
+                            extra_batch=extra)
         mark()
         _sync(prompt.device)
         seconds = time.perf_counter() - t0
@@ -815,14 +905,18 @@ def lm_gate_input(model, cfg, prompt):
     return seen[0].reshape(-1, cfg.d_model)
 
 
-def lm_replay_checks(model, cfg, prompt, tokens, unrolled) -> None:
+def lm_replay_checks(model, cfg, prompt, tokens, unrolled,
+                     extra=None) -> None:
     """Checks (b) and (c): the decode replayed step by step on the same
-    tokens; each token the in-DRAM sampler picked is a maximal index of
-    that step's quantized logits, and equals the pick of the ``unrolled``
-    backend (eager torch, no FSM kernel) on the same logits."""
+    tokens (``extra`` joining every forward, enc-dec caches primed first,
+    as in ``greedy_decode``); each token the in-DRAM sampler picked is a
+    maximal index of that step's quantized logits, and equals the pick of
+    the ``unrolled`` backend (eager torch, no FSM kernel) on the same
+    logits."""
     import torch
 
-    from repro_torch.models.transformer import init_caches
+    from repro_torch.models.transformer import (init_caches,
+                                                prime_encdec_caches)
     from repro_torch.serve.decode import (make_prefill, make_serve_step,
                                           quantize_logits,
                                           simdram_greedy_token)
@@ -830,7 +924,11 @@ def lm_replay_checks(model, cfg, prompt, tokens, unrolled) -> None:
     with torch.no_grad():
         caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
                              device=prompt.device)
-        logits, caches = make_prefill(cfg)(model, {"tokens": prompt}, caches)
+        extra = extra or {}
+        if extra:
+            caches = prime_encdec_caches(model, cfg, extra, caches)
+        logits, caches = make_prefill(cfg)(model, {"tokens": prompt, **extra},
+                                           caches)
         step = make_serve_step(cfg)
         for t in range(LM_NEW):
             last = logits[:, -1]
@@ -844,28 +942,30 @@ def lm_replay_checks(model, cfg, prompt, tokens, unrolled) -> None:
                    f"step {t}: the unrolled backend picks other tokens")
             if t + 1 < LM_NEW:
                 logits, caches = step(model, caches,
-                                      {"tokens": tokens[:, t:t + 1]})
+                                      {"tokens": tokens[:, t:t + 1], **extra})
 
 
 def lm_serve(model, cfg, prompt, wrappers: dict, repeats: int,
-             device) -> dict:
-    """The serving runs of phases 4e and 4f on ``model``: a cold decode with
-    each sampler (the in-DRAM one with every launch counter set to 0
-    before it, and a ``PerfStats``), ``repeats`` warm decodes of both in
-    turns, then checks (b) and (c).  Returns the tokens, launch counts,
+             device, extra=None) -> dict:
+    """The serving runs of phases 4e, 4f and 4i on ``model`` (``extra`` the
+    decodes' ``extra_batch``): a cold decode with each sampler (the
+    in-DRAM one with every launch counter set to 0 before it, and a
+    ``PerfStats``), ``repeats`` warm decodes of both in turns, then checks
+    (b) and (c).  A token must launch the FSM kernel once a μProgram and
+    the transposition kernels 3 times.  Returns the tokens, launch counts,
     ``PerfStats`` and timings."""
     import torch
 
     from repro_torch.ops import PerfStats, SimdramMachine
     res = {}
-    res["host_tokens"], res["host_cold_s"] = lm_generate(model, cfg, prompt,
-                                                         "host")[:2]
+    res["host_tokens"], res["host_cold_s"] = lm_generate(
+        model, cfg, prompt, "host", extra=extra)[:2]
     machine = SimdramMachine(device=device, banks=LM_BATCH)
     perf = PerfStats()
     for w in wrappers.values():
         w.launches = 0
-    tokens, res["simdram_cold_s"] = lm_generate(model, cfg, prompt,
-                                                "simdram", machine, perf)[:2]
+    tokens, res["simdram_cold_s"] = lm_generate(
+        model, cfg, prompt, "simdram", machine, perf, extra)[:2]
     res["launches"] = {name: w.launches for name, w in wrappers.items()}
     _check(tokens.shape == (LM_BATCH, LM_NEW)
            and tokens.device.type == torch.device(device).type
@@ -879,20 +979,28 @@ def lm_serve(model, cfg, prompt, wrappers: dict, repeats: int,
            f"{perf.n_programs} μPrograms and {perf.n_transposes} "
            f"transposition passes for {LM_NEW} tokens, expected {programs} "
            "and 3 a token")
+    k1 = res["launches"]["uprog_execute"]
+    k2 = (res["launches"]["bitplane_to_planes"]
+          + res["launches"]["bitplane_from_planes"])
+    _check(k1 == programs * LM_NEW and k2 == 3 * LM_NEW,
+           f"{k1} FSM and {k2} transposition launches for {LM_NEW} tokens, "
+           f"expected {programs} and 3 a token")
     res["perf"] = perf
     # warm runs of both samplers in turns (the host's speed drifts)
     # (host seconds, prefill ms, ms a decoded token) per run
     res["host_runs"], res["simdram_runs"] = [], []
     for _ in range(repeats):
-        res["host_runs"].append(lm_generate(model, cfg, prompt, "host")[1:])
-        again, *run = lm_generate(model, cfg, prompt, "simdram", machine)
+        res["host_runs"].append(lm_generate(model, cfg, prompt, "host",
+                                            extra=extra)[1:])
+        again, *run = lm_generate(model, cfg, prompt, "simdram", machine,
+                                  extra=extra)
         res["simdram_runs"].append(run)
         _check(torch.equal(again, tokens), "a second simdram decode picked "
                "other tokens")
     res["agree"] = float((tokens == res["host_tokens"]).float().mean())
     lm_replay_checks(model, cfg, prompt, tokens,
                      SimdramMachine(device=device, banks=LM_BATCH,
-                                    backend="unrolled"))
+                                    backend="unrolled"), extra)
     res["machine"] = machine
     return res
 
@@ -1064,6 +1172,43 @@ def lm_serving_path(device, wrappers: dict) -> dict:
 
 # -- phase 4f ----------------------------------------------------------------
 
+def full_width_serve(device, arch: str, wrappers: dict, seed: int,
+                     repeats: int) -> dict:
+    """One model of phases 4f and 4i at full width and depth, drawn in
+    place on the card: 16 × 32 tokens through ``greedy_decode`` with each
+    sampler (checks (b), (c)), an enc-dec model's frames in
+    ``extra_batch``; the peak memory after the build and through the
+    decodes, and an enc-dec model's priming of the caches timed alone.
+    Returns the numbers to print and what the profiled decodes need."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (init_caches,
+                                                prime_encdec_caches)
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(cfg, device, seed)
+    _sync(device)
+    res = {"build_peak": torch.cuda.max_memory_allocated(),
+           "params": sum(p.numel() for p in model.parameters())}
+    prompt = lm_tokens(cfg, (LM_BATCH, LM_PROMPT), seed + 1, device)
+    extra = lm_extra(cfg, LM_BATCH, seed + 2, device, torch.bfloat16)
+    res.update(lm_serve(model, cfg, prompt, wrappers, repeats, device, extra))
+    if extra:
+        caches = init_caches(cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=device)
+        with torch.no_grad():
+            res["prime_ms"] = event_ms(
+                lambda: prime_encdec_caches(model, cfg, extra, caches), 3)
+        del caches
+    res["serve_peak"] = torch.cuda.max_memory_allocated()
+    res["model"], res["cfg"], res["prompt"], res["extra"] = (model, cfg,
+                                                             prompt, extra)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
 def moe_serving_path(device, wrappers: dict) -> dict:
     """Phase 4f: checks (a) for OLMoE and DeepSeek-V2 (full width, 2 layers)
     and Mamba2-130m (full width and depth); then OLMoE-1B-7B at full width
@@ -1071,8 +1216,6 @@ def moe_serving_path(device, wrappers: dict) -> dict:
     sampler (checks (b), (c)); then check (d) on the reduced config of
     each new family.  Returns the numbers to print."""
     import torch
-
-    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     res = {"decode_err": {}}
     for i, (arch, layers) in enumerate(MOE_CHECKS):
@@ -1080,21 +1223,125 @@ def moe_serving_path(device, wrappers: dict) -> dict:
         res["decode_err"][arch] = (decode_matches_prefill(
             device, arch, layers, SEED + 30 + 2 * i),
             torch.cuda.max_memory_allocated())
-    cfg = get_config(MOE_ARCH)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    model = lm_model(cfg, device, SEED + 20)
-    _sync(device)
-    res["build_peak"] = torch.cuda.max_memory_allocated()
-    res["params"] = sum(p.numel() for p in model.parameters())
-    prompt = lm_tokens(cfg, (LM_BATCH, LM_PROMPT), SEED + 21, device)
-    res.update(lm_serve(model, cfg, prompt, wrappers, MOE_REPEATS, device))
-    res["serve_peak"] = torch.cuda.max_memory_allocated()
+    res.update(full_width_serve(device, MOE_ARCH, wrappers, SEED + 20,
+                                MOE_REPEATS))
     res["reduced_err"] = {arch: reduced_matches_cpu(device, arch)
                           for arch in REDUCED_FAMILIES}
-    res["model"], res["cfg"], res["prompt"] = model, cfg, prompt
     res["seconds"] = time.perf_counter() - t0
     return res
+
+# -- phase 4i ----------------------------------------------------------------
+
+def decode_steps(model, cfg, prompt, extra: dict, steps: int):
+    """Prefill ``prompt`` (an enc-dec model's caches primed first) now, and
+    return ``run()``, which takes ``steps`` cached one-token steps with the
+    host's pick and returns their wall seconds: a profile of it sees
+    decode steps only."""
+    import torch
+
+    from repro_torch.models.transformer import (init_caches,
+                                                prime_encdec_caches)
+    from repro_torch.serve.decode import make_prefill, make_serve_step
+    with torch.no_grad():
+        caches = init_caches(cfg, LM_BATCH, LM_PROMPT + steps,
+                             device=prompt.device)
+        if extra:
+            caches = prime_encdec_caches(model, cfg, extra, caches)
+        logits, caches = make_prefill(cfg)(model, {"tokens": prompt, **extra},
+                                           caches)
+    _sync(prompt.device)
+    step = make_serve_step(cfg)
+
+    def run() -> float:
+        nonlocal logits, caches
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(steps):
+                tok = logits[:, -1].argmax(-1)[:, None]
+                logits, caches = step(model, caches, {"tokens": tok, **extra})
+        _sync(prompt.device)
+        return time.perf_counter() - t0
+    return run
+
+
+def hybrid_encdec_path(device, wrappers: dict, card: str) -> dict:
+    """Phase 4i: checks (a) for Zamba2-7B (12 layers) and Whisper-large-v3
+    (2 + 2 layers, 1,500 frames) at full width, then each model at full
+    width and depth through :func:`full_width_serve`, its numbers printed
+    beside the card and its decodes profiled before it is freed.  Returns
+    each model's launch counts of one in-DRAM-sampler decode."""
+    import torch
+
+    from repro_torch.models.transformer import _shared_after
+    t0 = time.perf_counter()
+    for i, (arch, layers) in enumerate(HYBRID_CHECKS):
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        err = decode_matches_prefill(device, arch, layers, SEED + 40 + 2 * i)
+        print(f"phase 4i (a): {arch} cached decode == no-cache forward at "
+              f"full width, {layers} layers (and as many encoder layers over "
+              f"all frames for an enc-dec model), float32, {LM_CHECK_STEPS} "
+              f"steps: max |diff| {err:.3e} "
+              f"(limit {LM_SELF_ABS}; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"allocated; {time.perf_counter() - t1:.1f} s)")
+    launches = {}
+    for i, arch in enumerate(HYBRID_ARCHS):
+        run = full_width_serve(device, arch, wrappers, SEED + 44 + 3 * i,
+                               HYBRID_REPEATS)
+        cfg = run["cfg"]
+        if cfg.enc_dec:
+            shape = (f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} "
+                     f"decoder layers, encoder frames "
+                     f"{tuple(run['extra']['encoder_frames'].shape)} bf16")
+        else:
+            shape = (f"{cfg.n_layers} SSM layers, the shared attention "
+                     f"block called {sum(_shared_after(cfg))} times, d_inner "
+                     f"{cfg.d_inner}, {cfg.n_ssm_heads} SSM heads, state "
+                     f"{cfg.ssm_state}")
+        print(f"phase 4i: {cfg.name} at full width and depth "
+              f"({run['params']:,} parameters, {shape}, d_model "
+              f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab}, "
+              f"{cfg.compute_dtype} compute), {LM_BATCH} sequences x "
+              f"{LM_PROMPT}-token prompt + {LM_NEW} new tokens; peak "
+              f"{run['build_peak'] / 2**30:.2f} GiB allocated after the "
+              f"build, {run['serve_peak'] / 2**30:.2f} GiB through the "
+              f"decodes [{card}]")
+        if "prime_ms" in run:
+            print(f"phase 4i: {cfg.name} priming the caches from the frames "
+                  f"(the encoder and every layer's cross K/V, outside the "
+                  f"prefill figure): {run['prime_ms']:.3f} ms (median of 3, "
+                  f"CUDA events) [{card}]")
+        print_lm_serve("4i", run, cfg)
+        launches[arch] = run["launches"]
+        idle = [name for name in ("uprog_execute", "bitplane_to_planes",
+                                  "bitplane_from_planes")
+                if launches[arch][name] == 0]
+        _check(not idle, f"kernels not launched serving {arch}: {idle}")
+        model, prompt, extra = run["model"], run["prompt"], run["extra"]
+        t1 = time.perf_counter()
+        label = (f"{cfg.name}, {PROFILED_STEPS} cached decode steps after a "
+                 "prefill, host pick")
+        rows = device_breakdown(f"{label} [{card}]", decode_steps(
+            model, cfg, prompt, extra, PROFILED_STEPS))
+        if rows:
+            bf16 = sum(ms for key, ms, _ in rows if "bfloat16_copy" in key)
+            copies = sum(ms for key, ms, _ in rows if "direct_copy" in key)
+            print(f"phase 4i: {cfg.name} a decode step: "
+                  f"{bf16 / PROFILED_STEPS:.3f} ms of device time in "
+                  f"bfloat16_copy kernels (float32 -> bf16 casts: the "
+                  f"per-use weight casts and activations), "
+                  f"{copies / PROFILED_STEPS:.3f} ms in direct_copy kernels "
+                  f"(other copies and casts) [{card}]")
+        host_breakdown(label, decode_steps(model, cfg, prompt, extra,
+                                           PROFILED_STEPS), PROFILED_STEPS)
+        print(f"phase 4i: {cfg.name} took {run['seconds']:.1f} s before the "
+              f"profiles, {time.perf_counter() - t1:.1f} s in them")
+        del run, model, prompt, extra
+        torch.cuda.empty_cache()
+    print(f"phase 4i took {time.perf_counter() - t0:.1f} s")
+    return launches
+
 
 # -- phase 4g ----------------------------------------------------------------
 
@@ -1990,10 +2237,11 @@ def copy_ms(inputs: list, iters: int = 20) -> float | None:
     return total / iters / 1e3 if total else None
 
 
-def device_breakdown(label: str, run) -> None:
+def device_breakdown(label: str, run) -> list | None:
     """Run a path once more under the profiler (``run()`` returns its wall
     seconds) and print how much of its wall time the device was busy, and
-    with which kernels."""
+    with which kernels.  Returns the (kernel, device ms, count) rows (None
+    where the profiler cannot trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -2001,7 +2249,7 @@ def device_breakdown(label: str, run) -> None:
             seconds = run()
     except RuntimeError as exc:        # CUPTI tracing not permitted here
         print(f"profiler unavailable: {exc}")
-        return
+        return None
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
@@ -2011,6 +2259,7 @@ def device_breakdown(label: str, run) -> None:
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {ms:9.3f} ms  x{count:<5} {key[:90]}")
     torch.cuda.synchronize()
+    return rows
 
 
 def host_breakdown(label: str, run, steps: int) -> None:
@@ -2394,6 +2643,7 @@ def main() -> int:
     build_kernels()
     check_transpose(device, BANKS * LANES)
     check_fsm(device, BANKS, WORDS)
+    check_uprogram_entry(device, BANKS, WORDS)
     check_bitserial(device)
 
     wrappers = kernel_wrappers()
@@ -2549,6 +2799,8 @@ def main() -> int:
     del moe
     torch.cuda.empty_cache()
 
+    hybrid_launches = hybrid_encdec_path(device, wrappers, card)
+
     for w in wrappers.values():
         w.launches = 0
     train = training_path(device)
@@ -2581,7 +2833,10 @@ def main() -> int:
                app_launches["unrolled"], "applications/kernel":
                app_launches["kernel"], "serving": serve_launches,
                "sampler": sampler_launches, "lm_serving": lm_launches,
-               "lm_moe": moe_launches, "training": train_launches,
+               "lm_moe": moe_launches,
+               "lm_hybrid": hybrid_launches["zamba2-7b"],
+               "lm_encdec": hybrid_launches["whisper-large-v3"],
+               "training": train_launches,
                "distributed": dist_launches}
     for row in kernels:
         wrapper = row["name"].split("/")[0]

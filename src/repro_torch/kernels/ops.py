@@ -5,21 +5,23 @@ trace (:class:`~repro_torch.core.trace.LoweredTrace`): build a row file (D
 rows + C rows + B cells) straight from the trace's row-index map, run its
 int32 command array through the FSM kernel, read the outputs back.  Banked
 operands (``[banks, n_bits, W]``) build a banked row file that one kernel
-launch covers.  ``transpose_to_planes`` loads element values through the
-transposition kernel.
+launch covers.  ``run_uprogram_kernel`` keeps the μProgram-level entry
+point by lowering first (memoized).  ``transpose_to_planes`` loads element
+values through the transposition kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.trace import LoweredTrace
+from ..core.trace import LoweredTrace, lower_program
+from ..core.uprogram import UProgram
 from .bitplane_transpose import bitplane_transpose, from_planes, to_planes
 from .bitserial_matmul import bitserial_matmul, pack_signs
 from .uprog_executor import check_cmds, uprog_execute
 
 __all__ = ["bitplane_transpose", "bitserial_matmul", "from_planes",
-           "pack_signs", "run_trace_kernel", "to_planes",
-           "transpose_to_planes"]
+           "pack_signs", "run_trace_kernel", "run_uprogram_kernel",
+           "to_planes", "transpose_to_planes"]
 
 # (trace fingerprint, device) → device copy of the trace's checked commands;
 # traces are few (the μProgram Memory holds a handful), FIFO-bounded anyway
@@ -69,6 +71,14 @@ def run_trace_kernel(trace: LoweredTrace, operands: dict[str, torch.Tensor],
                                                out_bits.get(name, trace.n_bits)),
                         :]
             for name in trace.outputs}
+
+
+def run_uprogram_kernel(prog: UProgram, operands: dict[str, torch.Tensor],
+                        out_bits: dict[str, int] | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """μProgram-level entry: lower (memoized), then run the trace kernel
+    (the operands' device decides, as in :func:`run_trace_kernel`)."""
+    return run_trace_kernel(lower_program(prog), operands, out_bits=out_bits)
 
 
 def transpose_to_planes(x: torch.Tensor, n_bits: int) -> torch.Tensor:

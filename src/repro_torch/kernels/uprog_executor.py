@@ -13,7 +13,8 @@ dual-contact-cell port); the MAJ result is written to a, then b, then c.
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/uprog_executor.cu`` (banks folded into the word axis, one launch);
 on a CPU tensor it runs :func:`uprog_execute_plain`, a Python loop over the
-commands.
+commands.  :func:`encode_program` encodes a flat μProgram against a
+row-index map into such a stream.
 """
 from __future__ import annotations
 
@@ -158,3 +159,21 @@ def uprog_execute(cmds: torch.Tensor, rows: torch.Tensor,
 
 
 uprog_execute.launches = 0
+
+
+def encode_program(prog, row_index: dict,
+                   device: str | torch.device | None = None) -> torch.Tensor:
+    """Encode a flattened μProgram against a row-index map: int32[N, 4].
+
+    ``row_index`` maps RowRef keys to 1-based row numbers: ('array', bit)
+    for D rows, ('cell', c) for B cells, 'C0'/'C1' for the constant rows.
+    Multi-destination AAPs are split into one command per destination;
+    Case-2 fused AAPs emit MAJ + copy.  The encoding is owned by the
+    command-trace IR (:func:`repro_torch.core.trace.encode_uops`); prefer
+    lowering once via :func:`repro_torch.core.trace.lower_program` and
+    executing the cached ``LoweredTrace``.  The tensor is made on
+    ``device`` (the CPU when None).
+    """
+    from ..core.trace import encode_uops
+    cmds, _ = encode_uops(prog.flatten(), row_index)
+    return torch.as_tensor(cmds, dtype=torch.int32, device=device)

@@ -221,6 +221,39 @@ def test_init_caches_match_reference_shapes(arch):
             assert t.device.type == "cpu"
 
 
+# (arch, parameters) at full width and depth, as the reference counts them
+FULL_WIDTH = (("zamba2_7b", 6_750_539_856), ("whisper_large_v3",
+                                             2_020_421_120))
+
+
+@pytest.mark.parametrize("arch,n_params", FULL_WIDTH)
+def test_full_width_defs_and_cache_shapes_match_reference(arch, n_params):
+    """At ``get_config`` (nothing cut), without allocating: every parameter
+    leaf's path, shape, dtype and axes, ``param_bytes``, and the decode
+    caches' shapes and dtypes at 16 sequences × 160 positions."""
+    rcfg, pcfg = ref_configs.get_config(arch), port_configs.get_config(arch)
+    rdefs, pdefs = ref_tf.model_defs(rcfg), port_tf.model_defs(pcfg)
+    ref_leaves = jax.tree.leaves_with_path(
+        rdefs, is_leaf=lambda x: isinstance(x, ref_params.ParamDef))
+    port_leaves = port_params.tree_leaves(pdefs)
+    assert [".".join(k.key for k in p) for p, _ in ref_leaves] \
+        == [p for p, _ in port_leaves]
+    assert [dataclasses.astuple(d) for _, d in ref_leaves] \
+        == [dataclasses.astuple(d) for _, d in port_leaves]
+    assert port_params.param_bytes(pdefs) == ref_params.param_bytes(rdefs) \
+        == 4 * n_params
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                     (jnp.float32, torch.float32)):
+        want = port_params.tree_leaves(jax.tree.map(
+            lambda x: (x.shape, str(x.dtype)),
+            ref_tf.init_cache_shapes(rcfg, 16, 160, dtype=jdt),
+            is_leaf=lambda x: isinstance(x, jax.ShapeDtypeStruct)))
+        got = port_params.tree_leaves(port_tf.init_cache_shapes(
+            pcfg, 16, 160, dtype=tdt))
+        assert [(p, (tuple(shape), str(dt).removeprefix("torch.")))
+                for p, (shape, dt) in got] == want
+
+
 def test_draw_params_fills_the_module_in_place():
     _, pcfg = configs("deepseek_v2_236b")
     a = port_tf.Transformer(pcfg, "cpu").draw_params(

@@ -2,8 +2,9 @@
 neither JAX nor any module of the reference package ``repro`` and
 initialises no process group, no source file of the port names either
 package in an import, and every module of the reference has its
-counterpart."""
+counterpart, down to each public name."""
 import ast
+import importlib
 import json
 import os
 import pkgutil
@@ -67,6 +68,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
             "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb"} \
         <= set(port_modules())
+    # the last slice: the quickstart and serving-traffic examples
+    assert {"repro_torch.examples.quickstart",
+            "repro_torch.examples.serve_traffic"} <= set(port_modules())
 
 
 def test_port_sources_import_no_jax_and_no_repro():
@@ -115,12 +119,97 @@ def test_every_sliced_reference_module_has_a_counterpart():
     # and so does the serving example
     assert (PORT.parents[1] / "examples" / "serve_decode.py").exists()
     assert (PORT / "examples" / "serve_decode.py").exists()
-    # and the training example
-    assert (PORT.parents[1] / "examples" / "train_100m.py").exists()
-    assert (PORT / "examples" / "train_100m.py").exists()
+    # and the training, quickstart and serving-traffic examples: every
+    # example of the reference has its counterpart
+    for path in (PORT.parents[1] / "examples").glob("*.py"):
+        assert (PORT / "examples" / path.name).exists() \
+            or path.name == "simdram_apps.py", path.name
     # every architecture config is copied
     for path in (ref / "configs").glob("*.py"):
         assert (PORT / "configs" / path.name).exists(), path.name
+
+
+# reference module → the public names it has and its counterpart
+# deliberately lacks, each with its reason
+NAME_EXCEPTIONS = {
+    "core/unrolled.py": {
+        "FULL": "a jnp constant (all-ones uint32 word); the port's int32 "
+                "words write -1"},
+    "launch/dryrun.py": {
+        "ICI_BW": "a TPU interconnect constant, replaced by the H100 "
+                  "constants (HBM_BW, LINK_BW)"},
+    "kernels/uprog_executor.py": {
+        "LANE_BLOCK": "the Pallas kernel's TPU lane tile; the CUDA kernel "
+                      "tiles its own way",
+        "SUBLANE": "the TPU sublane count of the Pallas kernel's tile"},
+    "kernels/bitplane_transpose.py": {
+        "LANE_BLOCK": "the Pallas kernel's TPU lane tile; the CUDA kernels "
+                      "tile their own way"},
+    "models/layers.py": {
+        name: f"became the nn.Module {cls}" for name, cls in (
+            ("attention", "Attention"), ("mla_attention", "MLAttention"),
+            ("mlp", "MLP"), ("moe", "MoE"), ("pum_mlp", "PumMLP"),
+            ("ssm_mixer", "SSMMixer"))},
+    "models/transformer.py": {
+        "forward": "became Transformer.forward (an nn.Module)",
+        "attn_block": "became the nn.Module AttnBlock",
+        "ssm_block": "became the nn.Module SSMBlock"},
+    "simdram/layout.py": {
+        "BitplaneArray.tree_flatten": "a JAX pytree hook",
+        "BitplaneArray.tree_unflatten": "a JAX pytree hook"},
+}
+
+
+def reference_public_names(path: Path) -> set[str]:
+    """The names in ``__all__``, the public top-level functions, classes
+    and constants, and each public class's public methods (``Class.name``)
+    of a reference source file, read without importing it."""
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)) and not node.name.startswith("_"):
+            names.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                names |= {f"{node.name}.{m.name}" for m in node.body
+                          if isinstance(m, (ast.FunctionDef,
+                                            ast.AsyncFunctionDef))
+                          and not m.name.startswith("_")}
+        targets = (node.targets if isinstance(node, ast.Assign) else
+                   [node.target] if isinstance(node, ast.AnnAssign) else [])
+        for t in targets:
+            if not isinstance(t, ast.Name) or t.id.startswith("_"):
+                continue
+            if t.id == "__all__":
+                names |= set(ast.literal_eval(node.value))
+            else:
+                names.add(t.id)
+    return names
+
+
+def test_every_reference_name_has_a_counterpart():
+    ref = PORT.parent / "repro"
+    missing, stale = [], []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        mod = importlib.import_module(
+            ".".join(("repro_torch", *Path(rel).with_suffix("").parts))
+            .removesuffix(".__init__"))
+        exceptions = NAME_EXCEPTIONS.get(rel, {})
+        names = reference_public_names(path)
+        for name in sorted(names):
+            obj = mod
+            for part in name.split("."):
+                obj = getattr(obj, part, missing)
+            if obj is missing and name not in exceptions:
+                missing.append(f"{rel}: {name}")
+            if obj is not missing and name in exceptions:
+                stale.append(f"{rel}: {name}")
+        stale += [f"{rel}: {name} (not in the reference)"
+                  for name in exceptions if name not in names]
+    assert missing == []
+    assert stale == []
+    assert set(NAME_EXCEPTIONS) <= {p.relative_to(ref).as_posix()
+                                    for p in ref.rglob("*.py")}
 
 
 def test_default_machine_runs_on_cuda_and_refuses_a_missing_card(monkeypatch):

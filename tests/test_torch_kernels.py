@@ -19,7 +19,7 @@ from repro_torch.core.trace import compile_chain_trace, compile_trace
 from repro_torch.kernels.bitplane_transpose import (from_planes,
                                                     from_planes_plain,
                                                     to_planes, to_planes_plain)
-from repro_torch.kernels.ops import run_trace_kernel
+from repro_torch.kernels.ops import run_trace_kernel, run_uprogram_kernel
 from repro_torch.kernels.ref import uprog_maj_ref
 from repro_torch.kernels.uprog_executor import (check_cmds, uprog_execute,
                                                 uprog_execute_plain)
@@ -303,6 +303,27 @@ def test_transpose_kernels_match_plain_on_gpu():
                 assert from_planes.launches == n + 1
                 assert torch.equal(got, from_planes_plain(planes, signed)), \
                     (groups, n_bits, signed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", OPS)
+def test_run_uprogram_kernel_on_gpu_matches_the_cpu_run(op):
+    """The μProgram-level entry on the card (one FSM launch) equals its CPU
+    run at 8 bits, banked, greater's output cut to 1 plane."""
+    dev = cuda_or_skip()
+    prog, trace = compile_trace(op, 8)
+    operands = {name: torch.from_numpy(
+        random_words((16, 1 if name == "sel" else 8, 2048)).view(np.int32))
+        for name in dict.fromkeys(prog.inputs)}
+    out_bits = {"out": 1} if op == "greater" else None
+    n = uprog_execute.launches
+    got = run_uprogram_kernel(prog, {k: v.to(dev) for k, v in
+                                     operands.items()}, out_bits)
+    assert uprog_execute.launches == n + 1
+    want = run_uprogram_kernel(prog, operands, out_bits)
+    for name in want:
+        assert got[name].device.type == "cuda"
+        assert torch.equal(got[name].cpu(), want[name]), name
 
 
 @pytest.mark.gpu
