@@ -1,0 +1,6 @@
+"""Percent of the traced rounds of bbops in which the device ran nothing."""
+from simbench.harness.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
