@@ -299,17 +299,15 @@ def _equal(got, want, what: str, kernel: str | None = None) -> None:
 # -- phase 1 -----------------------------------------------------------------
 
 def build_kernels() -> float:
+    from repro_torch import telemetry
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     libs = _build.build_all()
     seconds = time.perf_counter() - t0
     for name, path in libs.items():
         print(f"kernel library {name}: {path.relative_to(ROOT)}")
-        if name in _build.BUILD_LOG:
-            for line in _build.BUILD_LOG[name][1].splitlines():
-                if "registers" in line or "smem" in line:
-                    print(f"  ptxas: {line.strip()}")
-    print(f"build: {seconds:.2f} s")
+    print(f"build: {seconds:.2f} s, {telemetry.counter('kernels.builds')} "
+          f"libraries built in {telemetry.counter('kernels.build_ns') / 1e9:.2f} s")
     return seconds
 
 

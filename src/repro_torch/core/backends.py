@@ -55,6 +55,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..simdram.layout import (LANE_WORD, register_movement_hook,
                               register_transpose_hook)
 from ..simdram.timing import SimdramPerfModel
@@ -784,28 +785,29 @@ def execute_lowered(prog: UProgram, trace: LoweredTrace, operands: dict,
         raise ValueError("banked execution needs every operand banked")
     banks = first.shape[0] if banked else 1
     eff = machine if machine is not None else _current_machine()
-    charging = _charging_stats(eff)
-    for st in charging:
-        offsets = None
-        for planes in operands.values():
-            if id(planes) in st._resident:
-                # direct reuse of a prior op's output planes stays inside
-                # the bank: an intra-bank LISA relocation per result row.
-                # Inter-bank PSM traffic is charged where it actually
-                # happens — BitplaneArray.rebank via the layout movement
-                # hooks (bank layouts cannot silently change between an
-                # op's output and a consumer's operand; rebank creates a
-                # new array).
-                st.charge_movement(int(planes.shape[-2]))
-            skew = st.take_bank_skew(id(planes), banks, machine=eff)
-            if skew is not None:
-                # this op consumes freshly scattered planes: its per-bank
-                # streams cannot start before each bank's data arrived
-                # (two scattered operands gate on the later arrival)
-                offsets = skew if offsets is None else tuple(
-                    max(a, b) for a, b in zip(offsets, skew))
-        st.charge_program(prog, banks, int(first.shape[-1]) * LANE_WORD,
-                          trace=trace, offsets=offsets)
+    with telemetry.span("machine.meter"):
+        charging = _charging_stats(eff)
+        for st in charging:
+            offsets = None
+            for planes in operands.values():
+                if id(planes) in st._resident:
+                    # direct reuse of a prior op's output planes stays inside
+                    # the bank: an intra-bank LISA relocation per result row.
+                    # Inter-bank PSM traffic is charged where it actually
+                    # happens — BitplaneArray.rebank via the layout movement
+                    # hooks (bank layouts cannot silently change between an
+                    # op's output and a consumer's operand; rebank creates a
+                    # new array).
+                    st.charge_movement(int(planes.shape[-2]))
+                skew = st.take_bank_skew(id(planes), banks, machine=eff)
+                if skew is not None:
+                    # this op consumes freshly scattered planes: its per-bank
+                    # streams cannot start before each bank's data arrived
+                    # (two scattered operands gate on the later arrival)
+                    offsets = skew if offsets is None else tuple(
+                        max(a, b) for a, b in zip(offsets, skew))
+            st.charge_program(prog, banks, int(first.shape[-1]) * LANE_WORD,
+                              trace=trace, offsets=offsets)
     if banked and not getattr(fn, "banked", False):
         # bank axis: one subarray per bank, for backends without a native
         # bank axis (the numpy oracle)

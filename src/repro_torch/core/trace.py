@@ -44,10 +44,12 @@ import collections
 import dataclasses
 import hashlib
 import threading
+import time
 import weakref
 
 import numpy as np
 
+from .. import telemetry
 from .uprogram import (AAP, AP, C0, C1, CRow, DRow, N_B_CELLS, Port,
                        UProgram, normalize_uop)
 
@@ -397,6 +399,13 @@ def canonical_uops(prog: UProgram) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _count_compile(t0: int) -> None:
+    """One μProgram Memory miss resolved (compile, lower, lint) since
+    ``t0`` (ns): the ``memory.compile_ns`` counter (the misses themselves
+    are each cache's own counters)."""
+    telemetry.count("memory.compile_ns", time.perf_counter_ns() - t0)
+
+
 class TraceCache:
     """A μProgram Memory: compile + lower once per ``(op, n_bits, optimize)``.
 
@@ -502,10 +511,12 @@ class TraceCache:
                     hit[1].lint().raise_for_errors()
                 return hit
             self._misses += 1
+            t0 = time.perf_counter_ns()
             prog = self._compile(name, n_bits, bool(optimize))
             trace = lower_program(prog)
             if self.verify if verify is None else verify:
                 trace.lint().raise_for_errors()
+            _count_compile(t0)
             entry = (prog, trace)
             self._entries[key] = entry
             while self.capacity is not None and \
@@ -538,12 +549,14 @@ class TraceCache:
                     hit[1].lint().raise_for_errors()
                 return hit
             self._misses += 1
+            t0 = time.perf_counter_ns()
             prog = compile_chain(stages, n_bits, optimize=bool(optimize),
                                  compile_fn=self._compile, outputs=outputs,
                                  name=name)
             trace = lower_program(prog)
             if self.verify if verify is None else verify:
                 trace.lint().raise_for_errors()
+            _count_compile(t0)
             entry = (prog, trace)
             self._entries[key] = entry
             while self.capacity is not None and \

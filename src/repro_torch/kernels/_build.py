@@ -6,6 +6,9 @@ into ``build/kernels/<name>-<hash>.so`` at the repository root (``hash`` is
 the source's content hash, so an edited source rebuilds).  Every missing
 library is compiled by its own ``nvcc`` process, all started together.
 The build is for ``sm_90a`` (Hopper); a host without ``nvcc`` raises.
+The libraries built count in the ``kernels.builds`` counter, the build's
+wall time in ``kernels.build_ns``; a fresh library's ptxas register and
+shared-memory lines go to stderr.
 """
 from __future__ import annotations
 
@@ -14,9 +17,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
+
+from .. import telemetry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -26,8 +32,6 @@ SOURCES = ("uprog_executor", "bitplane_transpose", "bitserial_matmul")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-# name → (seconds, ptxas report) of the builds this process ran
-BUILD_LOG: dict[str, tuple[float, str]] = {}
 
 
 def _nvcc() -> str:
@@ -58,7 +62,7 @@ def build_all() -> dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    start = time.perf_counter()
+    start = time.perf_counter_ns()
     for name, target in todo.items():
         # write next to the target and rename: concurrent builders never
         # load a half-written library
@@ -75,7 +79,11 @@ def build_all() -> dict[str, Path]:
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, target)
-        BUILD_LOG[name] = (time.perf_counter() - start, out)
+        telemetry.count("kernels.builds")
+        for line in out.splitlines():
+            if "registers" in line or "smem" in line:
+                print(f"{name} ptxas: {line.strip()}", file=sys.stderr)
+    telemetry.count("kernels.build_ns", time.perf_counter_ns() - start)
     if failures:
         raise RuntimeError("\n".join(failures))
     return targets

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..core.trace import LoweredTrace, lower_program
 from ..core.uprogram import UProgram
 from .bitplane_transpose import bitplane_transpose, from_planes, to_planes
@@ -49,10 +50,32 @@ def run_trace_kernel(trace: LoweredTrace, operands: dict[str, torch.Tensor],
 
     operands: name → int32[n_bits, W] or int32[banks, n_bits, W] planes.
     The trace's commands are checked once per fingerprint and device.
+    Each host-built index list the row file is indexed with (an operand's
+    rows and bits, an output's rows) counts in ``kernels.index_lists``:
+    on a CUDA device each is one pageable host-to-device copy.
     """
+    with telemetry.span("kernels.run_trace"):
+        first = next(iter(operands.values()))
+        with telemetry.span("kernels.row_file"):
+            rows, lists = _row_file(trace, operands)
+        with telemetry.span("kernels.k1"):
+            final = uprog_execute(_device_cmds(trace, first.device), rows,
+                                  check=False)
+        out_bits = out_bits or {}
+        telemetry.count("kernels.index_lists", lists + len(trace.outputs))
+        return {name: final[..., trace.out_row_ids(
+                    name, out_bits.get(name, trace.n_bits)), :]
+                for name in trace.outputs}
+
+
+def _row_file(trace: LoweredTrace, operands: dict[str, torch.Tensor]
+              ) -> tuple[torch.Tensor, int]:
+    """A zeroed row file with the operands' planes scattered into their
+    rows and the C1 row set, and the number of index lists it took."""
     first = next(iter(operands.values()))
     lead = tuple(first.shape[:-2])
     words = first.shape[-1]
+    lists = 0
     rows = torch.zeros((*lead, trace.n_rows, words), dtype=torch.int32,
                        device=first.device)
     for name, planes in operands.items():
@@ -63,14 +86,10 @@ def run_trace_kernel(trace: LoweredTrace, operands: dict[str, torch.Tensor],
                 dst.append(idx - 1)
                 src.append(bit)
         if dst:
+            lists += 2
             rows[..., dst, :] = planes[..., src, :]
     rows[..., trace.row_index["C1"] - 1, :] = -1
-    final = uprog_execute(_device_cmds(trace, first.device), rows, check=False)
-    out_bits = out_bits or {}
-    return {name: final[..., trace.out_row_ids(name,
-                                               out_bits.get(name, trace.n_bits)),
-                        :]
-            for name in trace.outputs}
+    return rows, lists
 
 
 def run_uprogram_kernel(prog: UProgram, operands: dict[str, torch.Tensor],

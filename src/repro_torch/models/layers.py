@@ -10,7 +10,8 @@ Conventions (the reference's, :mod:`repro.models.layers`)
   :class:`MLP`, :class:`PumMLP`, :class:`MoE`, :class:`SSMMixer`) holds parameters of those names and shapes, so a reference parameter
   tree loads into it leaf for leaf;
 * parameters are stored float32 and cast to ``cfg.compute_dtype`` at each
-  use; every cast, upcast and rounding happens in the reference's order,
+  use (``_cast``, which counts the bytes in ``models.weight_cast_bytes``);
+  every cast, upcast and rounding happens in the reference's order,
   so bf16 results round where the reference's do;
 * decode paths take explicit caches and write this step's keys and values
   into them in place (the cache tensors are the caller's; only ``pos``
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 
+from .. import telemetry
 from ..configs.base import ModelConfig
 from ..distributed.sharding import routing_placements
 from .params import ParamDef
@@ -41,6 +43,16 @@ P = ParamDef
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _cast(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Weight ``w`` in ``dt``, cast at its use; a cast that changes the
+    dtype adds the bytes it reads and writes to the
+    ``models.weight_cast_bytes`` counter."""
+    if w.dtype != dt:
+        telemetry.count("models.weight_cast_bytes",
+                        w.numel() * (w.element_size() + dt.itemsize))
+    return w.to(dt)
 
 
 def _param(d: ParamDef, device) -> nn.Parameter:
@@ -61,7 +73,7 @@ def rmsnorm_defs(d: int):
 def rmsnorm(x, scale, eps: float = 1e-5):
     var = x.float().square().mean(-1, keepdim=True)
     y = x * torch.rsqrt(var + eps).to(x.dtype)
-    return y * scale.to(x.dtype)
+    return y * _cast(scale, x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -289,13 +301,13 @@ class Attention(nn.Module):
         k_scale, v_scale for the int8 cache), one layer's."""
         cfg = self.cfg
         dt = _dt(cfg)
-        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
-        k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt))
-        v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt))
+        q = torch.einsum("bsd,dhk->bshk", x, _cast(self.wq, dt))
+        k = torch.einsum("bsd,dhk->bshk", x, _cast(self.wk, dt))
+        v = torch.einsum("bsd,dhk->bshk", x, _cast(self.wv, dt))
         if cfg.qkv_bias:
-            q = q + self.bq.to(dt)
-            k = k + self.bk.to(dt)
-            v = v + self.bv.to(dt)
+            q = q + _cast(self.bq, dt)
+            k = k + _cast(self.bk, dt)
+            v = v + _cast(self.bv, dt)
         pos = (mrope_positions if cfg.rope == "mrope"
                and mrope_positions is not None else positions)
         if cfg.rope != "none":
@@ -324,7 +336,7 @@ class Attention(nn.Module):
             y = _blockwise(lambda q, k, v: _masked_decode_attn(q, k, v, p),
                            q, ck.to(dt), cv.to(dt))
             new_cache = {"k": ck, "v": cv, "pos": p + q.shape[1]}
-        y = torch.einsum("bshk,hkd->bsd", y, self.wo.to(dt))
+        y = torch.einsum("bshk,hkd->bsd", y, _cast(self.wo, dt))
         return y, new_cache
 
 
@@ -367,21 +379,21 @@ class MLAttention(nn.Module):
         cfg = self.cfg
         dt = _dt(cfg)
         r, rh, hd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.hd
-        ckv = torch.einsum("bsd,dr->bsr", x, self.w_dkv.to(dt))
+        ckv = torch.einsum("bsd,dr->bsr", x, _cast(self.w_dkv, dt))
         c, k_rope = ckv[..., :r], ckv[..., r:]
         k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
         if cfg.q_lora_rank:
-            q = torch.einsum("bsd,dr->bsr", x, self.w_dq.to(dt))
-            q = torch.einsum("bsr,rhk->bshk", q, self.w_uq.to(dt))
+            q = torch.einsum("bsd,dr->bsr", x, _cast(self.w_dq, dt))
+            q = torch.einsum("bsr,rhk->bshk", q, _cast(self.w_uq, dt))
         else:
-            q = torch.einsum("bsd,dhk->bshk", x, self.w_q.to(dt))
+            q = torch.einsum("bsd,dhk->bshk", x, _cast(self.w_q, dt))
         q_nope, q_rope = q[..., :hd], q[..., hd:]
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         scale = 1.0 / math.sqrt(hd + rh)
         s = x.shape[1]
         if cache is None:
-            k_nope = torch.einsum("bsr,rhk->bshk", c, self.w_uk.to(dt))
-            v = torch.einsum("bsr,rhk->bshk", c, self.w_uv.to(dt))
+            k_nope = torch.einsum("bsr,rhk->bshk", c, _cast(self.w_uk, dt))
+            v = torch.einsum("bsr,rhk->bshk", c, _cast(self.w_uv, dt))
             if s > FLASH_THRESHOLD:
                 # the nope/rope score components as one head dim, through
                 # the online-softmax path (long prefill)
@@ -403,7 +415,8 @@ class MLAttention(nn.Module):
             p = cache["pos"]
             cc = _write(cache["c"], c, p)
             cr = _write(cache["k_rope"], k_rope[:, :, 0, :], p)
-            q_abs = torch.einsum("bshk,rhk->bshr", q_nope, self.w_uk.to(dt))
+            q_abs = torch.einsum("bshk,rhk->bshr", q_nope,
+                                 _cast(self.w_uk, dt))
             scores = (torch.einsum("bshr,btr->bhst", q_abs, cc.to(dt))
                       + torch.einsum("bshk,btk->bhst", q_rope, cr.to(dt))
                       ) * scale
@@ -412,9 +425,9 @@ class MLAttention(nn.Module):
             scores = torch.where(kpos <= qpos, scores.float(), -1e30)
             w = torch.softmax(scores, -1).to(dt)
             y_lat = torch.einsum("bhst,btr->bshr", w, cc.to(dt))
-            y = torch.einsum("bshr,rhk->bshk", y_lat, self.w_uv.to(dt))
+            y = torch.einsum("bshr,rhk->bshk", y_lat, _cast(self.w_uv, dt))
             new_cache = {"c": cc, "k_rope": cr, "pos": p + s}
-        y = torch.einsum("bshk,hkd->bsd", y, self.wo.to(dt))
+        y = torch.einsum("bshk,hkd->bsd", y, _cast(self.wo, dt))
         return y, new_cache
 
 
@@ -439,9 +452,10 @@ class MLP(nn.Module):
 
     def forward(self, x):
         dt = _dt(self.cfg)
-        g = torch.einsum("bsd,df->bsf", x, self.w_gate.to(dt))
-        u = torch.einsum("bsd,df->bsf", x, self.w_up.to(dt))
-        return torch.einsum("bsf,fd->bsd", F.silu(g) * u, self.w_down.to(dt))
+        g = torch.einsum("bsd,df->bsf", x, _cast(self.w_gate, dt))
+        u = torch.einsum("bsd,df->bsf", x, _cast(self.w_up, dt))
+        return torch.einsum("bsf,fd->bsd", F.silu(g) * u,
+                            _cast(self.w_down, dt))
 
 
 class SignSTE(torch.autograd.Function):
@@ -475,10 +489,10 @@ class PumMLP(MLP):
         # |x| with jnp.abs's gradient at 0 (1, where Tensor.abs gives 0)
         scale = torch.where(x >= 0, x, -x).mean(-1, keepdim=True)
         xb = sign_ste(x)
-        g = torch.einsum("bsd,df->bsf", xb, sign_ste(self.w_gate).to(dt))
-        u = torch.einsum("bsd,df->bsf", xb, sign_ste(self.w_up).to(dt))
+        g = torch.einsum("bsd,df->bsf", xb, _cast(sign_ste(self.w_gate), dt))
+        u = torch.einsum("bsd,df->bsf", xb, _cast(sign_ste(self.w_up), dt))
         h = F.silu(g * scale) * (u * scale)
-        return torch.einsum("bsf,fd->bsd", h, self.w_down.to(dt))
+        return torch.einsum("bsf,fd->bsd", h, _cast(self.w_down, dt))
 
 
 def moe_defs(cfg: ModelConfig):
@@ -569,10 +583,10 @@ class MoE(nn.Module):
         # expert einsum is a batched matmul over contiguous (g, c) rows:
         # the same products, and no view of a permuted shard for DTensor
         xs = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), tokens)
-        g = torch.einsum("egcd,edf->egcf", xs, self.w_gate.to(dt))
-        u = torch.einsum("egcd,edf->egcf", xs, self.w_up.to(dt))
+        g = torch.einsum("egcd,edf->egcf", xs, _cast(self.w_gate, dt))
+        u = torch.einsum("egcd,edf->egcf", xs, _cast(self.w_up, dt))
         ys = torch.einsum("egcf,efd->egcd", F.silu(g) * u,
-                          self.w_down.to(dt))
+                          _cast(self.w_down, dt))
         out = torch.einsum("gsec,egcd->gsd", combine.to(dt), ys)
         if cfg.n_shared_experts:
             out = out.reshape(b, s, d) + self.shared(x)
@@ -695,12 +709,12 @@ class SSMMixer(nn.Module):
         b_, s, _ = x.shape
         di, st, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
         hd = di // nh
-        zxbcdt = torch.einsum("bsd,de->bse", x, self.w_in.to(dt_))
+        zxbcdt = torch.einsum("bsd,de->bse", x, _cast(self.w_in, dt_))
         z = zxbcdt[..., :di]
         xbc = zxbcdt[..., di:2 * di + 2 * st]
         dt_raw = zxbcdt[..., 2 * di + 2 * st:]
         # depthwise causal conv over xbc (width 4)
-        conv_w = self.conv_w.to(dt_)
+        conv_w = _cast(self.conv_w, dt_)
         if cache is None:
             pad = torch.zeros((b_, 3, xbc.shape[-1]), dtype=xbc.dtype,
                               device=x.device)
@@ -732,7 +746,7 @@ class SSMMixer(nn.Module):
         y = y + self.d_skip.float()[None, None, :, None] * xh
         y = y.reshape(b_, s, di).to(dt_)
         y = self.norm(y * F.silu(z))
-        out = torch.einsum("bse,ed->bsd", y, self.w_out.to(dt_))
+        out = torch.einsum("bse,ed->bsd", y, _cast(self.w_out, dt_))
         new_cache = None
         if cache is not None:
             conv_state = xpad[:, -3:]

@@ -34,10 +34,11 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
+from .. import telemetry
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .layers import (MLP, Attention, MLAttention, MoE, ParamDef, PumMLP,
-                     RMSNorm, SSMMixer, _dt, _param, _sdpa, apply_rope,
+                     RMSNorm, SSMMixer, _cast, _dt, _param, _sdpa, apply_rope,
                      attention_defs, mla_defs, mlp_defs, moe_defs,
                      rmsnorm_defs, ssm_cache_shape, ssm_defs)
 from .params import stack_defs, tree_leaves
@@ -76,27 +77,27 @@ def _cross_attention(xattn: Attention, x, encoder_out, kv=None):
     ``xattn``'s projections, no bias and no RoPE.  ``kv``: precomputed
     (k, v) from the cross-KV cache."""
     dt = _dt(xattn.cfg)
-    q = torch.einsum("bsd,dhk->bshk", x, xattn.wq.to(dt))
+    q = torch.einsum("bsd,dhk->bshk", x, _cast(xattn.wq, dt))
     if kv is not None:
         k, v = kv[0].to(dt), kv[1].to(dt)
     else:
-        k = torch.einsum("btd,dhk->bthk", encoder_out, xattn.wk.to(dt))
-        v = torch.einsum("btd,dhk->bthk", encoder_out, xattn.wv.to(dt))
+        k = torch.einsum("btd,dhk->bthk", encoder_out, _cast(xattn.wk, dt))
+        v = torch.einsum("btd,dhk->bthk", encoder_out, _cast(xattn.wv, dt))
     y = _sdpa(q, k, v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", y, xattn.wo.to(dt))
+    return torch.einsum("bshk,hkd->bsd", y, _cast(xattn.wo, dt))
 
 
 def _noncausal_self_attn(attn: Attention, x, positions):
     """The encoder's self-attention: RoPE, no bias, no mask."""
     cfg = attn.cfg
     dt = _dt(cfg)
-    q = torch.einsum("bsd,dhk->bshk", x, attn.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, attn.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, attn.wv.to(dt))
+    q = torch.einsum("bsd,dhk->bshk", x, _cast(attn.wq, dt))
+    k = torch.einsum("bsd,dhk->bshk", x, _cast(attn.wk, dt))
+    v = torch.einsum("bsd,dhk->bshk", x, _cast(attn.wv, dt))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     y = _sdpa(q, k, v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", y, attn.wo.to(dt))
+    return torch.einsum("bshk,hkd->bsd", y, _cast(attn.wo, dt))
 
 
 class AttnBlock(nn.Module):
@@ -128,10 +129,12 @@ class AttnBlock(nn.Module):
             cross_kv = (cache["xk"], cache["xv"])
             cache = {k: v for k, v in cache.items() if k not in ("xk", "xv")}
         h = self.ln1(x)
-        if cfg.mla:
-            y, new_cache = self.attn(h, positions, cache)
-        else:
-            y, new_cache = self.attn(h, positions, cache, mrope_positions)
+        with telemetry.span("models.attn"):
+            if cfg.mla:
+                y, new_cache = self.attn(h, positions, cache)
+            else:
+                y, new_cache = self.attn(h, positions, cache,
+                                         mrope_positions)
         x = x + y
         if encoder_out is not None or cross_kv is not None:
             x = x + _cross_attention(self.xattn, self.ln_x(x), encoder_out,
@@ -139,11 +142,12 @@ class AttnBlock(nn.Module):
         if cross_kv is not None and new_cache is not None:
             new_cache = dict(new_cache, xk=cross_kv[0], xv=cross_kv[1])
         h = self.ln2(x)
-        if cfg.moe:
-            y, aux = self.ffn(h)
-        else:
-            y = self.ffn(h)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        with telemetry.span("models.ffn"):
+            if cfg.moe:
+                y, aux = self.ffn(h)
+            else:
+                y = self.ffn(h)
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x + y, aux, new_cache
 
 
@@ -315,8 +319,10 @@ class Transformer(nn.Module):
         returns the final-norm hidden states (B,S,d) of the compute dtype
         instead of logits (the chunked-vocab loss).
         """
+        telemetry.count("models.forwards")
         with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and caches is None):
+                                    and caches is None), \
+                telemetry.span("models.forward"):
             return self._forward(batch, caches, return_hidden)
 
     def _forward(self, batch, caches, return_hidden):
@@ -368,7 +374,7 @@ class Transformer(nn.Module):
         if return_hidden:
             return x, aux, new_caches
         head = self.embed.t() if cfg.tie_embeddings else self.lm_head
-        logits = torch.einsum("bsd,dv->bsv", x, head.to(dt)).float()
+        logits = torch.einsum("bsd,dv->bsv", x, _cast(head, dt)).float()
         return logits, aux, new_caches
 
     def _ssm_stack(self, x, layers, shared=None, remat: bool = False):
@@ -500,9 +506,9 @@ def prime_encdec_caches(model: Transformer, cfg: ModelConfig, batch: dict,
         xk, xv = [], []
         for blk in model.blocks:
             xk.append(torch.einsum("btd,dhk->bthk", enc,
-                                   blk.xattn.wk.to(dt)).to(dt))
+                                   _cast(blk.xattn.wk, dt)).to(dt))
             xv.append(torch.einsum("btd,dhk->bthk", enc,
-                                   blk.xattn.wv.to(dt)).to(dt))
+                                   _cast(blk.xattn.wv, dt)).to(dt))
         caches["layers"] = dict(caches["layers"], xk=torch.stack(xk),
                                 xv=torch.stack(xv))
     return caches

@@ -33,6 +33,7 @@ import threading
 
 import torch
 
+from .. import telemetry
 from ..core.backends import (PerfStats, execute_lowered,  # noqa: F401
                              execute_program, list_backends,
                              set_default_backend, use_backend)
@@ -140,15 +141,17 @@ def _run_op(name: str, operands: dict[str, BitplaneArray], n_bits: int,
         # fused-trace pipeline: record the op instead of executing it —
         # the whole chain compiles to ONE LoweredTrace at flush time
         return rec.record(name, operands, n_bits, signed_out, optimize)
+    telemetry.count("ops.bbops")
     operands = {k: (v.materialize() if isinstance(v, _ChainValue) else v)
                 for k, v in operands.items()}
     ops = list(operands.values())
     m = machine if machine is not None else current_machine()
-    if m is not None:
-        prog, trace = compiled or m.memory.get(name, n_bits, optimize)
-        backend = backend or m.backend
-    else:
-        prog, trace = compiled or compile_trace(name, n_bits, optimize)
+    with telemetry.span("memory.fetch"):
+        if m is not None:
+            prog, trace = compiled or m.memory.get(name, n_bits, optimize)
+            backend = backend or m.backend
+        else:
+            prog, trace = compiled or compile_trace(name, n_bits, optimize)
     outs = execute_lowered(
         prog, trace, {k: v.planes for k, v in operands.items()},
         out_bits={prog.outputs[0]: out_bits} if out_bits else None,
@@ -161,6 +164,11 @@ def _run_op(name: str, operands: dict[str, BitplaneArray], n_bits: int,
     return res.to_values()
 
 
+def _bbop_span(op: str, n_bits: int):
+    """One public bbop call, entry to return: the ``bbop`` span."""
+    return telemetry.span("bbop", {"op": op, "n_bits": n_bits})
+
+
 def _fused(*xs) -> bool:
     return any(isinstance(x, (BitplaneArray, _ChainValue)) for x in xs)
 
@@ -168,21 +176,24 @@ def _fused(*xs) -> bool:
 def _binary(name: str, a, b, n_bits: int, signed_out: bool = False,
             out_bits: int | None = None, optimize: bool = True,
             backend: str | None = None, machine=None):
-    keep = _fused(a, b)
-    pa, _ = _as_planes(a, n_bits, machine)
-    pb, _ = _as_planes(b, n_bits, machine)
-    return _run_op(name, {"a": pa, "b": pb}, n_bits, signed_out=signed_out,
-                   out_bits=out_bits, optimize=optimize, backend=backend,
-                   keep_planes=keep, machine=machine)
+    with _bbop_span(name, n_bits):
+        keep = _fused(a, b)
+        pa, _ = _as_planes(a, n_bits, machine)
+        pb, _ = _as_planes(b, n_bits, machine)
+        return _run_op(name, {"a": pa, "b": pb}, n_bits,
+                       signed_out=signed_out, out_bits=out_bits,
+                       optimize=optimize, backend=backend, keep_planes=keep,
+                       machine=machine)
 
 
 def _unary(name: str, a, n_bits: int, out_bits: int | None = None,
            optimize: bool = True, backend: str | None = None, machine=None):
-    keep = _fused(a)
-    pa, _ = _as_planes(a, n_bits, machine)
-    return _run_op(name, {"a": pa}, n_bits, out_bits=out_bits,
-                   optimize=optimize, backend=backend, keep_planes=keep,
-                   machine=machine)
+    with _bbop_span(name, n_bits):
+        keep = _fused(a)
+        pa, _ = _as_planes(a, n_bits, machine)
+        return _run_op(name, {"a": pa}, n_bits, out_bits=out_bits,
+                       optimize=optimize, backend=backend, keep_planes=keep,
+                       machine=machine)
 
 
 def _flip_msb(x, n_bits: int):
@@ -258,11 +269,12 @@ def bbop_bitcount(a, n_bits: int = 8, **kw):
 def _reduction(name: str, srcs, n_bits: int, optimize: bool = True,
                backend: str | None = None, machine=None):
     assert len(srcs) == 3, "the compiled reduction μPrograms are 3-input"
-    keep = _fused(*srcs)
-    operands = {f"s{k}": _as_planes(s, n_bits, machine)[0]
-                for k, s in enumerate(srcs)}
-    return _run_op(name, operands, n_bits, optimize=optimize,
-                   backend=backend, keep_planes=keep, machine=machine)
+    with _bbop_span(name, n_bits):
+        keep = _fused(*srcs)
+        operands = {f"s{k}": _as_planes(s, n_bits, machine)[0]
+                    for k, s in enumerate(srcs)}
+        return _run_op(name, operands, n_bits, optimize=optimize,
+                       backend=backend, keep_planes=keep, machine=machine)
 
 
 def bbop_and(srcs, n_bits: int = 8, **kw):
@@ -281,19 +293,20 @@ def bbop_xor(srcs, n_bits: int = 8, **kw):
 
 def bbop_if_else(sel, a, b, n_bits: int = 8, optimize: bool = True,
                  backend: str | None = None, machine=None):
-    keep = _fused(sel, a, b)
-    pa, _ = _as_planes(a, n_bits, machine)
-    pb, _ = _as_planes(b, n_bits, machine)
-    if isinstance(sel, _ChainValue):
-        sel = sel.materialize()
-    if isinstance(sel, BitplaneArray):
-        ps = sel if sel.n_bits == 1 else sel.astype_bits(1)
-    else:
-        ps, _ = _as_planes(as_tensor(sel, _device(machine)).to(torch.int32),
-                           1, machine)
-    return _run_op("if_else", {"a": pa, "b": pb, "sel": ps}, n_bits,
-                   optimize=optimize, backend=backend, keep_planes=keep,
-                   machine=machine)
+    with _bbop_span("if_else", n_bits):
+        keep = _fused(sel, a, b)
+        pa, _ = _as_planes(a, n_bits, machine)
+        pb, _ = _as_planes(b, n_bits, machine)
+        if isinstance(sel, _ChainValue):
+            sel = sel.materialize()
+        if isinstance(sel, BitplaneArray):
+            ps = sel if sel.n_bits == 1 else sel.astype_bits(1)
+        else:
+            ps, _ = _as_planes(
+                as_tensor(sel, _device(machine)).to(torch.int32), 1, machine)
+        return _run_op("if_else", {"a": pa, "b": pb, "sel": ps}, n_bits,
+                       optimize=optimize, backend=backend, keep_planes=keep,
+                       machine=machine)
 
 
 # ---------------------------------------------------------------------------

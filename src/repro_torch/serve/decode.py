@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..configs.base import ModelConfig
 from ..models.transformer import (check_cfg, init_caches,
                                   prime_encdec_caches)
@@ -179,14 +180,19 @@ def greedy_decode(model, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
     """
     check_cfg(model, cfg)
     if sampler == "simdram":
-        def pick(logits):
+        def choose(logits):
             return simdram_greedy_token(logits, perf_stats=sampler_perf,
                                         machine=machine).long()
     elif sampler == "host":
-        def pick(logits):
+        def choose(logits):
             return torch.argmax(logits, -1)
     else:
         raise ValueError(f"unknown sampler {sampler!r}")
+
+    def pick(logits):
+        with telemetry.span("decode.pick"):
+            return choose(logits)
+
     b, s = prompt.shape
     max_seq = max_seq or (s + steps)
     caches = init_caches(cfg, b, max_seq, device=model.device)
@@ -202,10 +208,11 @@ def greedy_decode(model, cfg: ModelConfig, prompt: torch.Tensor, steps: int,
     logits, caches = prefill(model, batch, caches)
     out = [pick(logits[:, -1])]
     for t in range(steps - 1):
-        db = {"tokens": out[-1][:, None], **extra}
-        if cfg.rope == "mrope":
-            db["mrope_positions"] = torch.full((b, 1, 3), s + t,
-                                               device=prompt.device)
-        logits, caches = step(model, caches, db)
-        out.append(pick(logits[:, -1]))
+        with telemetry.span("decode.step"):
+            db = {"tokens": out[-1][:, None], **extra}
+            if cfg.rope == "mrope":
+                db["mrope_positions"] = torch.full((b, 1, 3), s + t,
+                                                   device=prompt.device)
+            logits, caches = step(model, caches, db)
+            out.append(pick(logits[:, -1]))
     return torch.stack(out, 1)

@@ -14,24 +14,49 @@ Plane-resident values.  :class:`BitplaneArray` wraps planes together with
 their element width / logical length / signedness so chained ``bbop_*``
 operations can stay vertical end-to-end (paper Steps 1–3 keep operands in
 the subarray; the transposition unit is only paid at the memory boundary).
-Every trace-level layout conversion is counted in :data:`TRANSPOSE_STATS`
-so tests and benchmarks can assert how often the transposition unit ran.
+Every trace-level layout conversion is counted in the telemetry
+registry's ``layout.to_planes``/``layout.from_planes`` counters, read
+through :data:`TRANSPOSE_STATS`, so tests and benchmarks can assert how
+often the transposition unit ran.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..kernels.bitplane_transpose import from_planes, to_planes
 
 LANE_WORD = 32  # lanes packed per int32 plane word
 
-# trace-level transposition-unit accounting: one entry per to/from pass
+# trace-level transposition-unit accounting: one count per to/from pass
 # (a vectorized pass over stacked operands counts once, like the hardware
-# streaming a block through the transposition unit)
-TRANSPOSE_STATS = {"to_bitplanes": 0, "from_bitplanes": 0}
+# streaming a block through the transposition unit), kept in the telemetry
+# registry; TRANSPOSE_STATS reads it under the reference's keys
+_PASS_COUNTERS = {"to_bitplanes": "layout.to_planes",
+                  "from_bitplanes": "layout.from_planes"}
+
+
+class _TransposeStats(Mapping):
+    """The registry's two ``layout.*`` counters as a read-only mapping."""
+
+    def __getitem__(self, key: str) -> int:
+        return telemetry.counter(_PASS_COUNTERS[key])
+
+    def __iter__(self):
+        return iter(_PASS_COUNTERS)
+
+    def __len__(self) -> int:
+        return len(_PASS_COUNTERS)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+TRANSPOSE_STATS = _TransposeStats()
 
 # perf-instrumentation hooks, called as hook(kind, n_bits, lanes) on every
 # transposition-unit pass; the timed execution layer in repro_torch.core.backends
@@ -106,8 +131,7 @@ def note_elided_movement(n_rows: int, banks: int | None = None) -> None:
 
 
 def reset_transpose_stats() -> None:
-    TRANSPOSE_STATS["to_bitplanes"] = 0
-    TRANSPOSE_STATS["from_bitplanes"] = 0
+    telemetry.reset(*_PASS_COUNTERS.values())
 
 
 def transpose_counts() -> tuple[int, int]:
@@ -131,10 +155,11 @@ def to_bitplanes(values: torch.Tensor, n_bits: int) -> torch.Tensor:
     (e,) = values.shape
     if e % LANE_WORD:
         raise ValueError("lane count must be a multiple of 32")
-    TRANSPOSE_STATS["to_bitplanes"] += 1
-    for hook in _PERF_HOOKS:
-        hook("to", n_bits, e)
-    return to_planes(values.to(torch.int32), n_bits)
+    with telemetry.span("layout.to_planes"):
+        telemetry.count("layout.to_planes")
+        for hook in _PERF_HOOKS:
+            hook("to", n_bits, e)
+        return to_planes(values.to(torch.int32), n_bits)
 
 
 def from_bitplanes(planes: torch.Tensor, signed: bool = False,
@@ -144,17 +169,18 @@ def from_bitplanes(planes: torch.Tensor, signed: bool = False,
     ``signed`` sign-extends from bit n_bits−1 (n_bits < 32).  A wider
     ``dtype`` sees the unsigned value otherwise, as the reference's uint32
     accumulator gives it."""
-    TRANSPOSE_STATS["from_bitplanes"] += 1
-    n_bits, w = planes.shape
-    for hook in _PERF_HOOKS:
-        hook("from", n_bits, w * LANE_WORD)
-    val = from_planes(planes, signed=signed)
-    if dtype == torch.int32:
-        return val
-    wide = val.to(torch.int64)
-    if not (signed and n_bits < 32):
-        wide = wide & 0xFFFFFFFF
-    return wide.to(dtype)
+    with telemetry.span("layout.from_planes"):
+        telemetry.count("layout.from_planes")
+        n_bits, w = planes.shape
+        for hook in _PERF_HOOKS:
+            hook("from", n_bits, w * LANE_WORD)
+        val = from_planes(planes, signed=signed)
+        if dtype == torch.int32:
+            return val
+        wide = val.to(torch.int64)
+        if not (signed and n_bits < 32):
+            wide = wide & 0xFFFFFFFF
+        return wide.to(dtype)
 
 
 def pack_mask(mask: torch.Tensor) -> torch.Tensor:
