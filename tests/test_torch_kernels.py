@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.core.trace import compile_chain_trace, compile_trace
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.bitplane_transpose import (from_planes,
                                                     from_planes_plain,
                                                     to_planes, to_planes_plain)
@@ -230,6 +231,157 @@ def test_cpu_fsm_counts_no_launch():
     assert uprog_execute.launches == n
 
 
+def chain_trace():
+    return compile_chain_trace(
+        (("multiplication", ("a", "b"), "t"), ("addition", ("t", "c"), "u")),
+        8, outputs=("u",))[1]
+
+
+def plane_operands(trace, banks: int | None, words: int = 5):
+    """Random planes for each input: 8 planes, 1 for ``sel``."""
+    lead = () if banks is None else (banks,)
+    return {name: torch.from_numpy(random_words(
+                (*lead, 1 if name == "sel" else 8, words)).view(np.int32))
+            for name in dict.fromkeys(trace.inputs)}
+
+
+def rows_by_lists(trace, operands) -> torch.Tensor:
+    """The row file built from index lists made on each call, as
+    ``run_trace_kernel`` built it before its plans: the reference the
+    plan's row file is held to."""
+    first = next(iter(operands.values()))
+    rows = torch.zeros((*first.shape[:-2], trace.n_rows, first.shape[-1]),
+                       dtype=torch.int32)
+    for name, planes in operands.items():
+        dst, src = [], []
+        for bit in range(planes.shape[-2]):
+            idx = trace.row_index.get((name, bit))
+            if idx is not None:
+                dst.append(idx - 1)
+                src.append(bit)
+        if dst:
+            rows[..., dst, :] = planes[..., src, :]
+    rows[..., trace.row_index["C1"] - 1, :] = -1
+    return rows
+
+
+@pytest.fixture
+def no_plans(monkeypatch):
+    """An empty plan cache, and ``kernels.row_plans`` at 0."""
+    from repro_torch import telemetry
+    monkeypatch.setattr(kops, "_PLANS", {})
+    telemetry.reset("kernels.row_plans")
+    yield lambda: telemetry.counter("kernels.row_plans")
+    telemetry.reset("kernels.row_plans")
+
+
+PLAN_CASES = {
+    "unary": (lambda: compile_trace("abs", 8)[1], None, None),
+    "binary": (lambda: compile_trace("addition", 8)[1], None, None),
+    "binary_banked": (lambda: compile_trace("addition", 8)[1], 3, None),
+    "three_operands": (lambda: compile_trace("if_else", 8)[1], None, None),
+    "three_operands_banked": (lambda: compile_trace("if_else", 8)[1], 3,
+                              None),
+    "one_plane_out_banked": (lambda: compile_trace("greater", 8)[1], 2,
+                             {"out": 1}),
+    "chain": (chain_trace, None, None),
+    "chain_banked": (chain_trace, 2, None),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_row_file_and_outputs_equal_the_per_call_lists(case, no_plans):
+    """Cold (the plan built) and warm (the plan reused), the row file and
+    the outputs equal, bit for bit, those of index lists made on the
+    call."""
+    trace_of, banks, out_bits = PLAN_CASES[case]
+    trace = trace_of()
+    operands = plane_operands(trace, banks)
+    cold = run_trace_kernel(trace, operands, out_bits)
+    warm = run_trace_kernel(trace, operands, out_bits)
+    assert no_plans() == 1
+    plan = kops._row_plan(trace, operands, out_bits or {})
+    want_rows = rows_by_lists(trace, operands)
+    assert torch.equal(kops._row_file(trace, operands, plan), want_rows)
+    final = uprog_execute_plain(torch.from_numpy(trace.cmds), want_rows)
+    assert set(cold) == set(warm) == set(trace.outputs)
+    for name in trace.outputs:
+        ids = trace.out_row_ids(name, (out_bits or {}).get(name,
+                                                           trace.n_bits))
+        want = final[..., ids, :]
+        assert torch.equal(cold[name], want), name
+        assert torch.equal(warm[name], want), name
+
+
+def test_a_plan_is_built_once_per_plane_counts_and_widths(no_plans):
+    """The bank and word counts stay out of the key; another operand
+    plane count or another output width builds a plan of its own, and an
+    output wider than the trace's reads the C0 row past its bits."""
+    trace = compile_trace("addition", 8)[1]
+    (out,) = trace.outputs
+    ops8 = plane_operands(trace, None)
+    full = run_trace_kernel(trace, ops8)
+    assert torch.equal(run_trace_kernel(trace, ops8)[out], full[out])
+    assert no_plans() == 1
+    run_trace_kernel(trace, plane_operands(trace, 4, words=3))
+    assert no_plans() == 1
+    run_trace_kernel(trace, {"a": ops8["a"][:5], "b": ops8["b"]})
+    assert no_plans() == 2
+    narrow = run_trace_kernel(trace, ops8, {out: 4})
+    assert no_plans() == 3
+    wide = run_trace_kernel(trace, ops8, {out: trace.n_bits + 2})
+    assert no_plans() == 4
+    assert torch.equal(narrow[out], full[out][:4])
+    assert torch.equal(wide[out][:trace.n_bits], full[out])
+    assert not wide[out][trace.n_bits:].any()
+    c0 = trace.row_index["C0"] - 1
+    assert kops._row_plan(trace, ops8, {out: trace.n_bits + 2}) \
+        .gathers[0][1][trace.n_bits:].tolist() == [c0, c0]
+
+
+def test_the_plan_cache_evicts_its_oldest_plan(no_plans, monkeypatch):
+    monkeypatch.setattr(kops, "_PLANS_CAP", 2)
+    trace = compile_trace("addition", 8)[1]
+    (out,) = trace.outputs
+    ops8 = plane_operands(trace, None)
+    for width in (8, 7, 6):
+        run_trace_kernel(trace, ops8, {out: width})
+    assert [key[-1] for key in kops._PLANS] == [(7,), (6,)]
+    run_trace_kernel(trace, ops8, {out: 6})
+    assert no_plans() == 3
+    run_trace_kernel(trace, ops8, {out: 8})
+    assert no_plans() == 4
+
+
+def test_the_fingerprint_fixes_the_row_map():
+    """A plan's key holds the trace's fingerprint but not its row map:
+    ``lower_program``, the only place the port makes a trace, numbers the
+    D rows the fingerprint hashes in order, then C0, C1 and the B cells."""
+    import ast
+    import inspect
+    from pathlib import Path
+
+    import repro_torch
+    from repro_torch.core import trace as trace_mod
+    from repro_torch.core.uprogram import N_B_CELLS
+    makers = []
+    for path in Path(repro_torch.__file__).parent.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and "LoweredTrace" in (
+                    getattr(node.func, "id", None),
+                    getattr(node.func, "attr", None)):
+                makers.append((path.name, node.lineno))
+    lines, first = inspect.getsourcelines(trace_mod.lower_program)
+    assert [name for name, _ in makers] == ["trace.py"]
+    assert first <= makers[0][1] < first + len(lines)
+    for trace in [compile_trace(op, n)[1] for op, n in
+                  (("abs", 8), ("addition", 16), ("if_else", 8),
+                   ("division", 4))] + [chain_trace()]:
+        keys = [*trace.d_rows, "C0", "C1",
+                *(("cell", c) for c in range(N_B_CELLS))]
+        assert trace.row_index == {k: i + 1 for i, k in enumerate(keys)}
+
+
 @pytest.mark.gpu
 def test_fsm_kernel_matches_plain_on_gpu():
     dev = cuda_or_skip()
@@ -345,3 +497,35 @@ def test_cuda_machine_goes_through_both_kernels():
                                   np.maximum(a, b) & 0xFF)
     after = (uprog_execute.launches, to_planes.launches, from_planes.launches)
     assert all(n > c for n, c in zip(after, counts))
+
+
+@pytest.mark.gpu
+def test_a_warm_bbop_does_not_synchronise():
+    """Once its plan is built, a bbop on the card neither copies from the
+    host nor waits on the stream: under the sync-debug mode "error" a
+    second add, select and divide on (2, 4,096) banked operands raise
+    nothing and equal the first."""
+    from repro_torch.ops import SimdramMachine, bbop_add, bbop_div, \
+        bbop_if_else
+    dev = cuda_or_skip()
+    g = torch.Generator(device=dev).manual_seed(27)
+    a, b = (torch.randint(0, 256, (2, 4096), generator=g, dtype=torch.int32,
+                          device=dev) for _ in range(2))
+    b = torch.where(b == 0, torch.ones_like(b), b)
+    sel = torch.randint(0, 2, (2, 4096), generator=g, dtype=torch.int32,
+                        device=dev)
+    calls = {"add": lambda: bbop_add(a, b, 8),
+             "if_else": lambda: bbop_if_else(sel, a, b, 8),
+             "div": lambda: bbop_div(a, b, 8)}
+    m = SimdramMachine(banks=2, device=dev)
+    with m.session():
+        cold = {name: call() for name, call in calls.items()}
+        torch.cuda.synchronize()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            warm = {name: call() for name, call in calls.items()}
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    for name in calls:
+        assert torch.equal(cold[name], warm[name]), name
