@@ -17,6 +17,8 @@ ALIASES.update({
     "olmoe-1b-7b": "olmoe_1b_7b", "zamba2-7b": "zamba2_7b",
     "whisper-large-v3": "whisper_large_v3", "mamba2-130m": "mamba2_130m",
 })
+# port-only configs: found by name, never in ``ARCHS`` (the reference's ten)
+ALIASES["deepseek-v2-lite"] = "deepseek_v2_lite"
 
 
 def _module(arch: str):

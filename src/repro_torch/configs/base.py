@@ -71,6 +71,17 @@ class ModelConfig:
     cross_kv_cache: bool = True      # enc-dec decode: cache cross-attn K/V
     kv_cache_dtype: str = "bfloat16"  # bfloat16 | int8 (quantized KV cache)
 
+    # -- DeepSeek-V2 options the ten configs above lack: plain class
+    # attributes here, holding each option's off value, so ``asdict`` and
+    # the reference's ``ModelConfig(**asdict(cfg))`` see the ten configs
+    # unchanged; :class:`DeepSeekV2Config` makes them fields -------------
+    first_k_dense = 0                # leading layers with a dense FFN
+    dropless = False                 # MoE computes every routed pair
+    norm_topk_prob = True            # top-k gates renormalised to sum 1
+    kv_norm = False                  # MLA: RMSNorm on the kv latent
+    yarn_factor = 1.0                # > 1: YaRN rope scaling (MLA)
+    yarn_mscale = 1.0                # YaRN's mscale (= mscale_all_dim)
+
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
@@ -141,6 +152,35 @@ class ModelConfig:
         per_layer_all = ((self.n_experts + self.n_shared_experts) * 3 * d
                          * self.d_expert + d * self.n_experts)
         return self.param_count() - self.n_layers * (per_layer_all - per_layer_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """A :class:`ModelConfig` with the DeepSeek-V2 options as fields (port
+    only: the reference has no such class).  The defaults are the plain
+    class's off values."""
+    first_k_dense: int = ModelConfig.first_k_dense
+    dropless: bool = ModelConfig.dropless
+    norm_topk_prob: bool = ModelConfig.norm_topk_prob
+    kv_norm: bool = ModelConfig.kv_norm
+    yarn_factor: float = ModelConfig.yarn_factor
+    yarn_mscale: float = ModelConfig.yarn_mscale
+
+    def param_count(self) -> int:
+        """As :meth:`ModelConfig.param_count`, with the leading dense
+        layers' SwiGLU of ``d_ff`` in place of their MoE and the latent
+        norms' scales."""
+        d = self.d_model
+        moe = ((self.n_experts + self.n_shared_experts) * 3 * d
+               * self.d_expert + d * self.n_experts)
+        return (super().param_count()
+                - self.first_k_dense * (moe - 3 * d * self.d_ff)
+                + self.n_layers * self.kv_lora_rank * self.kv_norm)
+
+    def active_param_count(self) -> int:
+        d = self.d_model
+        idle = (self.n_experts - self.experts_per_tok) * 3 * d * self.d_expert
+        return self.param_count() - (self.n_layers - self.first_k_dense) * idle
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,12 @@
 """deepseek-v2-236b [moe] — MLA (kv_lora=512, decoupled RoPE), 2 shared +
-160 routed experts, top-6.  [arXiv:2405.04434]"""
+160 routed experts, top-6.  [arXiv:2405.04434]
+
+The reference's config, kept equal to it field for field: it lacks the
+published model's RMSNorms on the kv and q latents, its YaRN rope scaling
+(and softmax temperature), its leading dense layer and its dropless
+routing.  The port has all but the q-latent norm as ``DeepSeekV2Config``
+options, which ``configs/deepseek_v2_lite.py`` turns on (that model has
+no q latent)."""
 import dataclasses
 
 from .base import ModelConfig

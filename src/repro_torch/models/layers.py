@@ -1,7 +1,9 @@
-"""Layers on ``torch``: RMSNorm, RoPE/M-RoPE, GQA attention with a plain,
-an online-softmax (flash) and a cached decode path, the int8 KV cache, MLA
-(DeepSeek-V2 latent attention), the SwiGLU MLP with its binarized (PuM)
-variant, the top-k MoE, and the Mamba2/SSD mixer.
+"""Layers on ``torch``: RMSNorm, RoPE/M-RoPE (and DeepSeek-V2's YaRN
+frequencies), GQA attention with a plain, an online-softmax (flash) and a
+cached decode path, the int8 KV cache, MLA (DeepSeek-V2 latent attention,
+with its latent norm), the SwiGLU MLP with its binarized (PuM) variant,
+the top-k MoE (capacity-bound, or dropless with grouped expert products),
+and the Mamba2/SSD mixer.
 
 Conventions (the reference's, :mod:`repro.models.layers`)
 ---------------------------------------------------------
@@ -9,7 +11,8 @@ Conventions (the reference's, :mod:`repro.models.layers`)
   (:class:`RMSNorm`, :class:`Attention`, :class:`MLAttention`,
   :class:`MLP`, :class:`PumMLP`, :class:`MoE`, :class:`SSMMixer`) holds parameters of those names and shapes, so a reference parameter
   tree loads into it leaf for leaf;
-* parameters are stored float32 and cast to ``cfg.compute_dtype`` at each
+* parameters are stored in ``cfg.param_dtype`` (float32 in the ten
+  configs the reference shares) and cast to ``cfg.compute_dtype`` at each
   use (``_cast``, which counts the bytes in ``models.weight_cast_bytes``);
   every cast, upcast and rounding happens in the reference's order,
   so bf16 results round where the reference's do;
@@ -45,21 +48,27 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def _pdt(cfg: ModelConfig) -> torch.dtype:
+    """The dtype parameters are held in (``cfg.param_dtype``)."""
+    return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+
 def _cast(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """Weight ``w`` in ``dt``, cast at its use; a cast that changes the
     dtype adds the bytes it reads and writes to the
     ``models.weight_cast_bytes`` counter."""
-    if w.dtype != dt:
-        telemetry.count("models.weight_cast_bytes",
-                        w.numel() * (w.element_size() + dt.itemsize))
+    if w.dtype == dt:
+        return w
+    telemetry.count("models.weight_cast_bytes",
+                    w.numel() * (w.element_size() + dt.itemsize))
     return w.to(dt)
 
 
-def _param(d: ParamDef, device) -> nn.Parameter:
-    """An uninitialised float32 parameter of ``d``'s shape (filled by
-    ``Transformer.load_params``)."""
-    return nn.Parameter(torch.empty(d.shape, dtype=torch.float32,
-                                    device=device))
+def _param(d: ParamDef, device, dtype: torch.dtype = torch.float32
+           ) -> nn.Parameter:
+    """An uninitialised parameter of ``d``'s shape in ``dtype`` (the
+    config's :func:`_pdt`; filled by ``Transformer.load_params``)."""
+    return nn.Parameter(torch.empty(d.shape, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -77,10 +86,11 @@ def rmsnorm(x, scale, eps: float = 1e-5):
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, eps: float = 1e-5, device="cuda"):
+    def __init__(self, d: int, eps: float = 1e-5, device="cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
-        self.scale = _param(rmsnorm_defs(d)["scale"], device)
+        self.scale = _param(rmsnorm_defs(d)["scale"], device, dtype)
 
     def forward(self, x):
         return rmsnorm(x, self.scale, self.eps)
@@ -95,6 +105,55 @@ class RMSNorm(nn.Module):
 def rope_freqs(hd: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                          device=device) / hd))
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention-temperature factor of a context ``factor``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+# DeepSeek-V2's YaRN settings besides the factor and mscale, the only
+# ones the port computes: the original context, and the rotations over it
+# that bound the correction range
+YARN_ORIGINAL_POSITIONS = 4096
+YARN_BETA_FAST = 32
+YARN_BETA_SLOW = 1
+
+
+def yarn_freqs(cfg: ModelConfig, dim: int, device=None):
+    """DeepSeek-V2's YaRN inverse frequencies of ``dim`` rope dims (its
+    ``DeepseekV2YarnRotaryEmbedding``): the original ``θ^(-2i/dim)`` below
+    the correction range, those divided by ``cfg.yarn_factor`` above it,
+    and a linear ramp between; the range's ends are the dims that turn
+    ``YARN_BETA_FAST`` and ``YARN_BETA_SLOW`` times over
+    ``YARN_ORIGINAL_POSITIONS`` positions."""
+    base = cfg.rope_theta
+
+    def corr(rotations):
+        return (dim * math.log(YARN_ORIGINAL_POSITIONS
+                               / (rotations * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(corr(YARN_BETA_FAST)), 0)
+    high = min(math.ceil(corr(YARN_BETA_SLOW)), dim - 1)
+    if low == high:
+        high += 0.001
+    pw = base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                               device=device) / dim)
+    extra, inter = 1.0 / pw, 1.0 / (cfg.yarn_factor * pw)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def _rotate(x, cos, sin):
+    """x: (..., S, H, hd) rotated on its interleaved pairs by ``cos`` and
+    ``sin`` (..., S, 1, hd/2) of ``x``'s dtype."""
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                       -1).reshape(x.shape)
 
 
 def apply_rope(x, positions, theta: float = 1e4, mrope_sections=None):
@@ -113,10 +172,7 @@ def apply_rope(x, positions, theta: float = 1e4, mrope_sections=None):
                          * freqs[off:off + sec])
         ang = torch.cat(parts, -1)
     cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
-    x1, x2 = x[..., 0::2], x[..., 1::2]
-    y1 = x1 * cos.to(x.dtype) - x2 * sin.to(x.dtype)
-    y2 = x2 * cos.to(x.dtype) + x1 * sin.to(x.dtype)
-    return torch.stack([y1, y2], -1).reshape(x.shape)
+    return _rotate(x, cos.to(x.dtype), sin.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +200,19 @@ FLASH_BLOCK_K = 1024
 FLASH_THRESHOLD = 4096       # naive path below this many score elements²
 
 
+def _long(s: int, t: int) -> bool:
+    """Whether ``s`` queries over ``t`` keys take the online-softmax path:
+    past ``FLASH_THRESHOLD``² scores a head."""
+    return s * t > FLASH_THRESHOLD * FLASH_THRESHOLD
+
+
+def _causal(s: int, q_offset: int, device):
+    """The (S, q_offset + S) mask of queries at positions ``q_offset``..
+    over the keys up to each one's own position."""
+    qpos = torch.arange(s, device=device)[:, None] + q_offset
+    return torch.arange(q_offset + s, device=device)[None, :] <= qpos
+
+
 def _sdpa_naive(q, k, v, causal: bool, q_offset: int = 0):
     """q: (B,S,H,hd); k/v: (B,T,KV,hd) — grouped by broadcasting."""
     b, s, h, hd = q.shape
@@ -161,13 +230,18 @@ def _sdpa_naive(q, k, v, causal: bool, q_offset: int = 0):
 
 
 def _flash_attn(q, k, v, causal: bool, q_offset: int = 0, kv_len=None,
-                block_q: int = FLASH_BLOCK_Q, block_k: int = FLASH_BLOCK_K):
+                block_q: int = FLASH_BLOCK_Q, block_k: int = FLASH_BLOCK_K,
+                scale: float | None = None):
     """Online-softmax attention: O(S·hd) memory instead of O(S·T).
 
     q: (B,S,H,hd); k/v: (B,T,KV,hd).  ``kv_len``: optional scalar — only
     cache positions < kv_len + current block are attendable (decode).  The
     reference's scan over q blocks × scan over kv blocks becomes two
     Python loops with the same carry (running max, sum, accumulator).
+    Causal, the key blocks wholly after a query block are skipped: there
+    every score is masked, so each adds exactly 0 to the sum and the
+    accumulator.  ``scale`` multiplies the scores (``hd^-0.5`` unless
+    given).
     """
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -185,17 +259,19 @@ def _flash_attn(q, k, v, causal: bool, q_offset: int = 0, kv_len=None,
     qb = q.reshape(b, nq, bq, kv, g, hd).permute(1, 0, 3, 4, 2, 5)
     kb = k.reshape(b, nk, bk, kv, hd).permute(1, 0, 3, 2, 4)
     vb = v.reshape(b, nk, bk, kv, hd_v).permute(1, 0, 3, 2, 4)
-    scale = 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
     dev = q.device
     outs = []
     for qi in range(nq):
         qpos = qi * bq + torch.arange(bq, device=dev) + q_offset
+        last_k = nk if not causal else min(nk, (qi * bq + bq - 1
+                                                + q_offset) // bk + 1)
         m = torch.full((b, kv, g, bq), -math.inf, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, kv, g, bq), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, kv, g, bq, hd_v), dtype=torch.float32,
                           device=dev)
-        for ki in range(nk):
+        for ki in range(last_k):
             kpos = ki * bk + torch.arange(bk, device=dev)
             sc = torch.einsum("bkgqd,bktd->bkgqt", qb[qi], kb[ki]) * scale
             sc = sc.float()
@@ -294,7 +370,7 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         for name, d in attention_defs(cfg).items():
-            self.register_parameter(name, _param(d, device))
+            self.register_parameter(name, _param(d, device, _pdt(cfg)))
 
     def forward(self, x, positions, cache=None, mrope_positions=None):
         """Returns ``(y, new_cache)``; ``cache`` = dict(k, v, pos) (+
@@ -358,77 +434,132 @@ def mla_defs(cfg: ModelConfig):
         defs["w_uq"] = P((rq, nh, hd + rh), ("lora", "heads", None))
     else:
         defs["w_q"] = P((d, nh, hd + rh), ("embed", "heads", None))
+    if cfg.kv_norm:
+        defs["kv_norm"] = {"scale": P((r,), ("lora",), init="ones")}
     return defs
 
 
 class MLAttention(nn.Module):
     """Latent attention with the reference's parameter names; cached decode
     keeps only the compressed kv latent ``c`` and the RoPE key
-    ``k_rope``."""
+    ``k_rope``.  With ``cfg.kv_norm`` the latent is RMS-normalised
+    (``kv_norm.scale``) before it is cached or projected; with
+    ``cfg.yarn_factor > 1`` the rope takes YaRN's frequencies
+    (:func:`yarn_freqs`) and the scores YaRN's temperature,
+    ``yarn_mscale(factor, mscale)²`` (mscale is mscale_all_dim, so the
+    cos/sin factor, their ratio, is 1)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         for name, d in mla_defs(cfg).items():
-            self.register_parameter(name, _param(d, device))
+            if name != "kv_norm":
+                self.register_parameter(name, _param(d, device, _pdt(cfg)))
+        if cfg.kv_norm:
+            self.kv_norm = RMSNorm(cfg.kv_lora_rank, cfg.norm_eps, device,
+                                   _pdt(cfg))
+        self.scale = (1.0 / math.sqrt(cfg.hd + cfg.rope_head_dim)
+                      * yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale) ** 2)
 
-    def forward(self, x, positions, cache=None):
+    def rope(self, positions, dtype: torch.dtype):
+        """``(cos, sin)`` (..., S, 1, rope_head_dim/2) of ``positions`` in
+        ``dtype``: the rotation of every layer's rope dims, which the
+        :class:`Transformer` makes once a forward."""
+        cfg = self.cfg
+        rh = cfg.rope_head_dim
+        freqs = (yarn_freqs(cfg, rh, positions.device) if cfg.yarn_factor > 1
+                 else rope_freqs(rh, cfg.rope_theta, positions.device))
+        ang = positions[..., :, None].float() * freqs
+        return (ang.cos()[..., None, :].to(dtype),
+                ang.sin()[..., None, :].to(dtype))
+
+    def forward(self, x, positions, cache=None, rope=None):
         """Returns ``(y, new_cache)``; ``cache`` = dict(c, k_rope, pos), one
-        layer's (scored against the latent directly: the absorbed
-        decode)."""
+        layer's; ``rope``: :meth:`rope` of ``positions``, made here if not
+        given.  Attention reads the positions written so far: a cached
+        step scores against the latent directly (the absorbed decode); a
+        step without a cache, or one past ``FLASH_THRESHOLD``² scores a
+        head, attends over explicit keys and values (:meth:`_explicit`).
+        A one-token step with a cache is the span ``models.mla.decode``
+        and adds the latent-cache bytes it reads to
+        ``models.mla.latent_bytes``; any other step is
+        ``models.mla.prefill``."""
+        decode = cache is not None and x.shape[1] == 1
+        with telemetry.span("models.mla.decode" if decode
+                            else "models.mla.prefill"):
+            return self._attend(x, positions, cache, rope)
+
+    def _attend(self, x, positions, cache, rope):
         cfg = self.cfg
         dt = _dt(cfg)
-        r, rh, hd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.hd
+        r, hd = cfg.kv_lora_rank, cfg.hd
+        cos, sin = self.rope(positions, dt) if rope is None else rope
         ckv = torch.einsum("bsd,dr->bsr", x, _cast(self.w_dkv, dt))
         c, k_rope = ckv[..., :r], ckv[..., r:]
-        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+        if cfg.kv_norm:
+            c = self.kv_norm(c)
+        k_rope = _rotate(k_rope[:, :, None, :], cos, sin)
         if cfg.q_lora_rank:
             q = torch.einsum("bsd,dr->bsr", x, _cast(self.w_dq, dt))
             q = torch.einsum("bsr,rhk->bshk", q, _cast(self.w_uq, dt))
         else:
             q = torch.einsum("bsd,dhk->bshk", x, _cast(self.w_q, dt))
-        q_nope, q_rope = q[..., :hd], q[..., hd:]
-        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-        scale = 1.0 / math.sqrt(hd + rh)
-        s = x.shape[1]
-        if cache is None:
-            k_nope = torch.einsum("bsr,rhk->bshk", c, _cast(self.w_uk, dt))
-            v = torch.einsum("bsr,rhk->bshk", c, _cast(self.w_uv, dt))
-            if s > FLASH_THRESHOLD:
-                # the nope/rope score components as one head dim, through
-                # the online-softmax path (long prefill)
-                q_cat = torch.cat([q_nope, q_rope], -1)
-                k_cat = torch.cat([k_nope, k_rope.expand(
-                    *k_nope.shape[:-1], rh)], -1)
-                y = _flash_attn(q_cat, k_cat, v, causal=True)
-            else:
-                scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
-                          + torch.einsum("bshk,btzk->bhst", q_rope, k_rope)
-                          ) * scale
-                ar = torch.arange(s, device=x.device)
-                scores = torch.where(ar[:, None] >= ar[None, :],
-                                     scores.float(), -1e30)
-                w = torch.softmax(scores, -1).to(dt)
-                y = torch.einsum("bhst,bthk->bshk", w, v)
-            new_cache = None
-        else:
+        q_nope, q_rope = q[..., :hd], _rotate(q[..., hd:], cos, sin)
+        b, s = x.shape[:2]
+        p, new_cache = 0, None
+        if cache is not None:
             p = cache["pos"]
             cc = _write(cache["c"], c, p)
             cr = _write(cache["k_rope"], k_rope[:, :, 0, :], p)
+            new_cache = {"c": cc, "k_rope": cr, "pos": p + s}
+            c, k_rope = cc[:, :p + s].to(dt), cr[:, :p + s, None, :].to(dt)
+        if cache is None or _long(s, p + s):
+            y = self._explicit(q_nope, q_rope, c, k_rope, p)
+        else:
+            if s == 1:
+                telemetry.count("models.mla.latent_bytes", b * (p + 1) * (
+                    r * cc.element_size()
+                    + cfg.rope_head_dim * cr.element_size()))
             q_abs = torch.einsum("bshk,rhk->bshr", q_nope,
                                  _cast(self.w_uk, dt))
-            scores = (torch.einsum("bshr,btr->bhst", q_abs, cc.to(dt))
-                      + torch.einsum("bshk,btk->bhst", q_rope, cr.to(dt))
-                      ) * scale
-            qpos = torch.arange(s, device=x.device)[:, None] + p
-            kpos = torch.arange(cc.shape[1], device=x.device)[None, :]
-            scores = torch.where(kpos <= qpos, scores.float(), -1e30)
-            w = torch.softmax(scores, -1).to(dt)
-            y_lat = torch.einsum("bhst,btr->bshr", w, cc.to(dt))
+            scores = (torch.einsum("bshr,btr->bhst", q_abs, c)
+                      + torch.einsum("bshk,btk->bhst", q_rope, k_rope[:, :, 0])
+                      ) * self.scale
+            if s > 1:
+                scores = torch.where(_causal(s, p, x.device),
+                                     scores.float(), -1e30)
+            w = torch.softmax(scores.float(), -1).to(dt)
+            y_lat = torch.einsum("bhst,btr->bshr", w, c)
             y = torch.einsum("bshr,rhk->bshk", y_lat, _cast(self.w_uv, dt))
-            new_cache = {"c": cc, "k_rope": cr, "pos": p + s}
         y = torch.einsum("bshk,hkd->bsd", y, _cast(self.wo, dt))
         return y, new_cache
+
+    def _explicit(self, q_nope, q_rope, c, k_rope, q_offset: int,
+                  block_q: int = FLASH_BLOCK_Q, block_k: int = FLASH_BLOCK_K):
+        """Causal attention of queries from position ``q_offset`` over the
+        explicit keys and values of latents ``c`` (B,T,r) and rope keys
+        ``k_rope`` (B,T,1,rh): plain scores, or past ``FLASH_THRESHOLD``²
+        a head the nope/rope components as one head dim through the
+        online-softmax path in ``block_q`` × ``block_k`` blocks, so that no
+        (B,H,S,T) scores exist."""
+        dt = _dt(self.cfg)
+        s, t = q_nope.shape[1], c.shape[1]
+        k_nope = torch.einsum("btr,rhk->bthk", c, _cast(self.w_uk, dt))
+        v = torch.einsum("btr,rhk->bthk", c, _cast(self.w_uv, dt))
+        if _long(s, t):
+            k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], -1)], -1)
+            del k_nope
+            return _flash_attn(torch.cat([q_nope, q_rope], -1), k, v,
+                               causal=True, q_offset=q_offset,
+                               block_q=block_q, block_k=block_k,
+                               scale=self.scale)
+        scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+                  + torch.einsum("bshk,btzk->bhst", q_rope, k_rope)
+                  ) * self.scale
+        scores = torch.where(_causal(s, q_offset, c.device), scores.float(),
+                             -1e30)
+        w = torch.softmax(scores, -1).to(dt)
+        return torch.einsum("bhst,bthk->bshk", w, v)
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +579,7 @@ class MLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         for name, d in mlp_defs(cfg, d_ff).items():
-            self.register_parameter(name, _param(d, device))
+            self.register_parameter(name, _param(d, device, _pdt(cfg)))
 
     def forward(self, x):
         dt = _dt(self.cfg)
@@ -531,14 +662,16 @@ class MoE(nn.Module):
     einsums: tokens route in groups of ``MOE_GROUP`` (halved until it
     divides the token count), each expert takes at most ``capacity`` of a
     group's tokens in token order, and the rest drop.  ``shared`` (with
-    ``n_shared_experts``) is a dense :class:`MLP` added to every token."""
+    ``n_shared_experts``) is a dense :class:`MLP` added to every token.
+    With ``cfg.dropless`` every routed pair is computed instead
+    (:meth:`_dropless`); ``cfg.norm_topk_prob`` renormalises the gates."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
         for name, d in moe_defs(cfg).items():
             if name != "shared":
-                self.register_parameter(name, _param(d, device))
+                self.register_parameter(name, _param(d, device, _pdt(cfg)))
         if cfg.n_shared_experts:
             self.shared = MLP(cfg, device,
                               cfg.d_expert * cfg.n_shared_experts)
@@ -552,12 +685,15 @@ class MoE(nn.Module):
                               self.router.float())
         probs = torch.softmax(logits, -1)
         gate_vals, gate_idx = torch.topk(probs, self.cfg.experts_per_tok)
-        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+        if self.cfg.norm_topk_prob:
+            gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
         return probs, gate_vals, gate_idx
 
     def forward(self, x):
         """Returns ``(out, aux)``: the output and the load-balance loss."""
         cfg = self.cfg
+        if cfg.dropless:
+            return self._dropless(x)
         dt = _dt(cfg)
         b, s, d = x.shape
         e, k = cfg.n_experts, cfg.experts_per_tok
@@ -595,6 +731,43 @@ class MoE(nn.Module):
         ce = assign.mean((0, 1)) / k
         aux = e * torch.sum(me * ce)
         return unroute(out.reshape(b, s, d)), aux
+
+    def _dropless(self, x):
+        """Every token through its top-k experts, none dropped (DeepSeek's
+        ``moe_infer``): the (token, expert) pairs sorted by expert
+        (``models.moe.route``: router, top-k, sort, gather), each expert's
+        rows one group of a grouped product, the outputs put back in pair
+        order and summed with their gates in float32 (``models.moe.
+        experts``), and the shared experts added.  Nothing here waits on
+        the host; ``models.moe.pairs`` counts the pairs computed."""
+        cfg = self.cfg
+        dt = _dt(cfg)
+        b, s, d = x.shape
+        e, k = cfg.n_experts, cfg.experts_per_tok
+        n = b * s
+        tokens = x.reshape(n, d)
+        with telemetry.span("models.moe.route"):
+            probs, gate, idx = (t[0] for t in self.route(tokens[None]))
+            experts, order = idx.reshape(-1).sort(stable=True)
+            ends = torch.searchsorted(
+                experts, torch.arange(1, e + 1, device=x.device)
+            ).to(torch.int32)
+            xs = tokens[order // k]
+        telemetry.count("models.moe.pairs", n * k)
+        with telemetry.span("models.moe.experts"):
+            # row block i (rows ends[i-1]:ends[i]) times expert i's weight,
+            # one grouped product each, the ends read on the device
+            h = (F.silu(torch._grouped_mm(xs, _cast(self.w_gate, dt),
+                                          offs=ends))
+                 * torch._grouped_mm(xs, _cast(self.w_up, dt), offs=ends))
+            ys = torch._grouped_mm(h, _cast(self.w_down, dt), offs=ends)
+            y = torch.empty_like(ys).index_copy_(0, order, ys)
+            out = (y.view(n, k, d).float() * gate[..., None]).sum(1).to(dt)
+        if cfg.n_shared_experts:
+            out = out + self.shared(tokens[None])[0]
+        counts = torch.diff(ends, prepend=ends.new_zeros(1))
+        aux = e * torch.sum(probs.mean(0) * counts.float() / (n * k))
+        return out.reshape(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------
@@ -689,8 +862,8 @@ class SSMMixer(nn.Module):
         self.cfg = cfg
         for name, d in ssm_defs(cfg).items():
             if name != "norm":
-                self.register_parameter(name, _param(d, device))
-        self.norm = RMSNorm(cfg.d_inner, device=device)
+                self.register_parameter(name, _param(d, device, _pdt(cfg)))
+        self.norm = RMSNorm(cfg.d_inner, device=device, dtype=_pdt(cfg))
 
     def forward(self, x, cache=None):
         """Returns ``(y, new_cache)``; ``cache`` = dict(conv (B,3,ch),

@@ -5,7 +5,9 @@ stacks, with per-family decode caches.
 Entry points (the reference's, :mod:`repro.models.transformer`)
 ----------------------------------------------------------------
 ``model_defs(cfg)``                       ParamDef tree (stacked ``blocks``,
-                                          ``ssm_blocks``, ``enc_blocks``)
+                                          ``ssm_blocks``, ``enc_blocks``;
+                                          ``dense_blocks`` for leading
+                                          dense layers of a MoE model)
 ``Transformer(cfg, device)``              the module; ``load_params(tree)``
                                           fills it from such a tree,
                                           ``draw_params(generator)`` draws
@@ -13,7 +15,9 @@ Entry points (the reference's, :mod:`repro.models.transformer`)
 ``Transformer(...)(batch, caches=None)``  → (logits, aux, new_caches);
                                           ``return_hidden=True`` gives the
                                           final-norm hidden states instead
-                                          of logits (the chunked loss)
+                                          of logits (the chunked loss, the
+                                          prefill), ``model.logits(h)``
+                                          their logits
 ``prime_encdec_caches(model, cfg, ...)``  run the encoder once into the
                                           caches (enc-dec serving)
 ``init_cache_shapes(cfg, batch, seq)``    decode-cache (shape, dtype) tree
@@ -38,16 +42,18 @@ from .. import telemetry
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .layers import (MLP, Attention, MLAttention, MoE, ParamDef, PumMLP,
-                     RMSNorm, SSMMixer, _cast, _dt, _param, _sdpa, apply_rope,
-                     attention_defs, mla_defs, mlp_defs, moe_defs,
+                     RMSNorm, SSMMixer, _cast, _dt, _param, _pdt, _sdpa,
+                     apply_rope, attention_defs, mla_defs, mlp_defs, moe_defs,
                      rmsnorm_defs, ssm_cache_shape, ssm_defs)
 from .params import stack_defs, tree_leaves
 
 P = ParamDef
 
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
-# parameter subtrees stacked over layers in the reference's tree
-STACKED = ("blocks", "ssm_blocks", "enc_blocks")
+# parameter subtrees stacked over layers in the reference's tree (and the
+# port's ``dense_blocks``: a MoE model's leading dense layers, named
+# ``blocks.<i>`` in the module before the MoE layers)
+STACKED = ("blocks", "ssm_blocks", "enc_blocks", "dense_blocks")
 SHARED_EVERY = 6       # hybrid: the shared attention block after every 6th
 
 
@@ -107,22 +113,24 @@ class AttnBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda", cross: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        pdt = _pdt(cfg)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, device, pdt)
         self.attn = (MLAttention if cfg.mla else Attention)(cfg, device)
-        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, device, pdt)
         if cfg.moe:
             self.ffn = MoE(cfg, device)
         else:
             self.ffn = (PumMLP if cfg.pum_mlp else MLP)(cfg, device)
         if cross:
-            self.ln_x = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+            self.ln_x = RMSNorm(cfg.d_model, cfg.norm_eps, device, pdt)
             self.xattn = Attention(cfg, device)
 
     def forward(self, x, positions, cache=None, mrope_positions=None,
-                encoder_out=None):
+                encoder_out=None, rope=None):
         """Returns ``(x, aux, new_cache)``.  A cache may carry ``xk``/``xv``
         (the precomputed cross-attention keys and values), which pass
-        through to the new cache."""
+        through to the new cache; ``rope``: MLA's cos/sin of
+        ``positions`` (:meth:`MLAttention.rope`), if made already."""
         cfg = self.cfg
         cross_kv = None
         if cache is not None and "xk" in cache:
@@ -131,7 +139,7 @@ class AttnBlock(nn.Module):
         h = self.ln1(x)
         with telemetry.span("models.attn"):
             if cfg.mla:
-                y, new_cache = self.attn(h, positions, cache)
+                y, new_cache = self.attn(h, positions, cache, rope)
             else:
                 y, new_cache = self.attn(h, positions, cache,
                                          mrope_positions)
@@ -154,7 +162,7 @@ class AttnBlock(nn.Module):
 class SSMBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, device, _pdt(cfg))
         self.mixer = SSMMixer(cfg, device)
 
     def forward(self, x, cache=None):
@@ -179,6 +187,11 @@ def _shared_after(cfg: ModelConfig) -> list[bool]:
     return [(i + 1) % SHARED_EVERY == 0 for i in range(n_ssm_layers(cfg))]
 
 
+def _dense_cfg(cfg: ModelConfig) -> ModelConfig:
+    """A leading dense layer's config: the SwiGLU of ``d_ff`` for the MoE."""
+    return dataclasses.replace(cfg, moe=False)
+
+
 def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
     # the encoder's blocks are dense (and never binarized: ``_encode``
     # calls the plain MLP); pum_mlp changes no parameter definition
@@ -194,8 +207,12 @@ def model_defs(cfg: ModelConfig):
     elif cfg.family == "ssm":
         defs["ssm_blocks"] = stack_defs(ssm_block_defs(cfg), n_ssm_layers(cfg))
     else:
+        k = cfg.first_k_dense
         defs["blocks"] = stack_defs(
-            attn_block_defs(cfg, cross=cfg.enc_dec), n_attn_layers(cfg))
+            attn_block_defs(cfg, cross=cfg.enc_dec), n_attn_layers(cfg) - k)
+        if k:
+            defs["dense_blocks"] = stack_defs(
+                attn_block_defs(_dense_cfg(cfg)), k)
     if cfg.enc_dec:
         defs["enc_blocks"] = stack_defs(attn_block_defs(_encoder_cfg(cfg)),
                                         cfg.n_encoder_layers)
@@ -206,10 +223,14 @@ def model_defs(cfg: ModelConfig):
     return defs
 
 
-def _layer_names(path: str, n_layers: int) -> list[str]:
+def _layer_names(path: str, n_layers: int, first_k_dense: int = 0
+                 ) -> list[str]:
     head, _, rest = path.partition(".")
+    if head == "dense_blocks":
+        return [f"blocks.{i}.{rest}" for i in range(n_layers)]
     if head in STACKED:
-        return [f"{head}.{i}.{rest}" for i in range(n_layers)]
+        first = first_k_dense if head == "blocks" else 0
+        return [f"{head}.{first + i}.{rest}" for i in range(n_layers)]
     return [path]
 
 
@@ -217,7 +238,7 @@ def leaf_names(cfg: ModelConfig) -> list[list[str]]:
     """The :class:`Transformer`'s parameter names of each ``model_defs(cfg)``
     leaf, in the reference's leaf order: one per layer (the leaf's leading
     axis) for a stacked subtree."""
-    return [_layer_names(path, d.shape[0])
+    return [_layer_names(path, d.shape[0], cfg.first_k_dense)
             for path, d in tree_leaves(model_defs(cfg))]
 
 
@@ -228,9 +249,11 @@ class Transformer(nn.Module):
     ``ssm_blocks.3.mixer.a_log``, ``enc_blocks.1.ffn.w_down``,
     ``final_norm.scale``, ``lm_head`` unless the embeddings are tied); the
     hybrid's weight-tied ``shared_attn`` is one block, called after every
-    sixth SSM layer.  Built uninitialised on ``device`` (``"cuda"`` unless
-    the caller asks for the CPU); fill it with :meth:`load_params` or
-    :meth:`draw_params`.
+    sixth SSM layer; a MoE model's ``cfg.first_k_dense`` leading blocks
+    have the dense SwiGLU of ``d_ff`` (``blocks.0.ffn.w_gate``, ...).
+    Parameters are held in ``cfg.param_dtype``.  Built uninitialised on
+    ``device`` (``"cuda"`` unless the caller asks for the CPU); fill it
+    with :meth:`load_params` or :meth:`draw_params`.
 
     ``cfg.scan_layers`` does not change the computation: the layer loop
     is Python either way.  ``cfg.remat`` recomputes blocks in the backward
@@ -242,7 +265,8 @@ class Transformer(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         defs = model_defs(cfg)
-        self.embed = _param(defs["embed"], dev)
+        pdt = _pdt(cfg)
+        self.embed = _param(defs["embed"], dev, pdt)
         if cfg.family in ("ssm", "hybrid"):
             self.ssm_blocks = nn.ModuleList(SSMBlock(cfg, dev)
                                             for _ in range(n_ssm_layers(cfg)))
@@ -250,23 +274,30 @@ class Transformer(nn.Module):
                 self.shared_attn = AttnBlock(cfg, dev)
         else:
             self.blocks = nn.ModuleList(
-                AttnBlock(cfg, dev, cross=cfg.enc_dec)
-                for _ in range(n_attn_layers(cfg)))
+                AttnBlock(_dense_cfg(cfg) if i < cfg.first_k_dense else cfg,
+                          dev, cross=cfg.enc_dec)
+                for i in range(n_attn_layers(cfg)))
         if cfg.enc_dec:
             enc_cfg = _encoder_cfg(cfg)
             self.enc_blocks = nn.ModuleList(
                 AttnBlock(enc_cfg, dev) for _ in range(cfg.n_encoder_layers))
-            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
+            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev, pdt)
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev, pdt)
         if not cfg.tie_embeddings:
-            self.lm_head = _param(defs["lm_head"], dev)
+            self.lm_head = _param(defs["lm_head"], dev, pdt)
 
     def _names(self, path: str) -> list[str]:
         """The module's parameter names of a ``model_defs`` leaf: one per
         layer for a stacked subtree, in layer order."""
         head = path.partition(".")[0]
-        return _layer_names(path, len(getattr(self, head))
-                            if head in STACKED else 1)
+        k = self.cfg.first_k_dense
+        if head == "dense_blocks":
+            n = k
+        elif head in STACKED:
+            n = len(getattr(self, head)) - (k if head == "blocks" else 0)
+        else:
+            n = 1
+        return _layer_names(path, n, k)
 
     def load_params(self, tree) -> "Transformer":
         """Copy a parameter tree shaped like ``model_defs(cfg)`` (tensors on
@@ -347,9 +378,12 @@ class Transformer(nn.Module):
         if cfg.family in ATTN_FAMILIES:
             layers = caches["layers"] if caches is not None else None
             layer_pos = []
+            # MLA: the rope's cos/sin, made once for every layer
+            rope = self.blocks[0].attn.rope(positions, dt) if cfg.mla else None
             for i, block in enumerate(self.blocks):
                 x, a, nc = _call(remat, block, x, positions,
-                                 _layer_cache(layers, i), mrope, encoder_out)
+                                 _layer_cache(layers, i), mrope, encoder_out,
+                                 rope)
                 aux = aux + a
                 if nc is not None:
                     layer_pos.append(nc["pos"])
@@ -373,9 +407,13 @@ class Transformer(nn.Module):
                 new_caches["encoder_out"] = encoder_out
         if return_hidden:
             return x, aux, new_caches
+        return self.logits(x), aux, new_caches
+
+    def logits(self, x):
+        """float32 logits (B,S,V) of final-norm hidden states ``x``."""
+        cfg = self.cfg
         head = self.embed.t() if cfg.tie_embeddings else self.lm_head
-        logits = torch.einsum("bsd,dv->bsv", x, _cast(head, dt)).float()
-        return logits, aux, new_caches
+        return torch.einsum("bsd,dv->bsv", x, _cast(head, _dt(cfg))).float()
 
     def _ssm_stack(self, x, layers, shared=None, remat: bool = False):
         """The SSM layers over ``x``; ``shared(i, x)`` (hybrid) runs after

@@ -31,11 +31,13 @@ __all__ = ["make_prefill", "make_serve_step", "greedy_decode",
 
 
 def make_prefill(cfg: ModelConfig):
-    """Multi-token forward that also populates the decode caches."""
+    """Multi-token forward that also populates the decode caches; the LM
+    head runs on the last position only, the one whose logits are used."""
     def prefill(model, batch, caches):
         check_cfg(model, cfg)
-        logits, _, new_caches = model(batch, caches)
-        return logits[:, -1:], new_caches
+        hidden, _, new_caches = model(batch, caches, return_hidden=True)
+        with torch.no_grad():        # as the forward runs with caches
+            return model.logits(hidden[:, -1:]), new_caches
     return prefill
 
 
