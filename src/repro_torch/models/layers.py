@@ -198,6 +198,7 @@ def attention_defs(cfg: ModelConfig):
 FLASH_BLOCK_Q = 1024
 FLASH_BLOCK_K = 1024
 FLASH_THRESHOLD = 4096       # naive path below this many score elements²
+FLASH_DECODE_KEYS = 16384    # cached attention past this many keys: flash
 
 
 def _long(s: int, t: int) -> bool:
@@ -206,11 +207,13 @@ def _long(s: int, t: int) -> bool:
     return s * t > FLASH_THRESHOLD * FLASH_THRESHOLD
 
 
-def _causal(s: int, q_offset: int, device):
-    """The (S, q_offset + S) mask of queries at positions ``q_offset``..
-    over the keys up to each one's own position."""
+def _causal(s: int, q_offset, device, t: int | None = None):
+    """The (S, T) mask of queries at positions ``q_offset``.. over the keys
+    up to each one's own position; ``t`` keys, ``q_offset + s`` unless
+    given (``q_offset`` may then be a device tensor of shape (1,))."""
     qpos = torch.arange(s, device=device)[:, None] + q_offset
-    return torch.arange(q_offset + s, device=device)[None, :] <= qpos
+    keys = q_offset + s if t is None else t
+    return torch.arange(keys, device=device)[None, :] <= qpos
 
 
 def _sdpa_naive(q, k, v, causal: bool, q_offset: int = 0):
@@ -333,7 +336,7 @@ def _masked_decode_attn(q, k, v, q_pos: int):
     cache-populating prefill).  Long caches take the online-softmax path."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    if s * t > FLASH_THRESHOLD * FLASH_THRESHOLD or t > 16384:
+    if s * t > FLASH_THRESHOLD * FLASH_THRESHOLD or t > FLASH_DECODE_KEYS:
         return _flash_attn(q, k, v, causal=True, q_offset=q_pos)
     q = q.reshape(b, s, kv, h // kv, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k) / math.sqrt(hd)
@@ -345,12 +348,21 @@ def _masked_decode_attn(q, k, v, q_pos: int):
     return out.reshape(b, s, h, hd)
 
 
-def _write(cache: torch.Tensor, update: torch.Tensor, pos: int):
-    """Write ``update`` into ``cache`` along axis 1 at ``pos``, in place."""
-    s, t = update.shape[1], cache.shape[1]
+def _check_room(pos: int, s: int, t: int) -> None:
+    """Raise unless ``s`` positions from ``pos`` fit a cache of ``t``."""
     if pos + s > t:
         raise ValueError(f"cache overflow: writing positions {pos}..{pos + s - 1}"
                          f" into a cache of {t}")
+
+
+def _write(cache: torch.Tensor, update: torch.Tensor, pos):
+    """Write ``update`` into ``cache`` along axis 1 at ``pos``, in place.
+    ``pos`` is a Python int, or a device tensor of shape (1,) (int64) for
+    one token: an ``index_copy_`` there, whose room the caller checked."""
+    if torch.is_tensor(pos):
+        return cache.index_copy_(1, pos, update.to(cache.dtype))
+    s = update.shape[1]
+    _check_room(pos, s, cache.shape[1])
     cache[:, pos:pos + s] = update.to(cache.dtype)
     return cache
 
@@ -480,8 +492,10 @@ class MLAttention(nn.Module):
         step scores against the latent directly (the absorbed decode); a
         step without a cache, or one past ``FLASH_THRESHOLD``² scores a
         head, attends over explicit keys and values (:meth:`_explicit`).
-        A one-token step with a cache is the span ``models.mla.decode``
-        and adds the latent-cache bytes it reads to
+        A cache ``pos`` that is a device tensor (one token, the step a
+        CUDA graph records) reads the whole cache instead, the keys past
+        it masked.  A one-token step with a cache is the span
+        ``models.mla.decode`` and adds the latent-cache bytes it reads to
         ``models.mla.latent_bytes``; any other step is
         ``models.mla.prefill``."""
         decode = cache is not None and x.shape[1] == 1
@@ -506,18 +520,19 @@ class MLAttention(nn.Module):
             q = torch.einsum("bsd,dhk->bshk", x, _cast(self.w_q, dt))
         q_nope, q_rope = q[..., :hd], _rotate(q[..., hd:], cos, sin)
         b, s = x.shape[:2]
-        p, new_cache = 0, None
+        p, t, new_cache = 0, s, None
         if cache is not None:
             p = cache["pos"]
             cc = _write(cache["c"], c, p)
             cr = _write(cache["k_rope"], k_rope[:, :, 0, :], p)
             new_cache = {"c": cc, "k_rope": cr, "pos": p + s}
-            c, k_rope = cc[:, :p + s].to(dt), cr[:, :p + s, None, :].to(dt)
-        if cache is None or _long(s, p + s):
+            t = cc.shape[1] if torch.is_tensor(p) else p + s
+            c, k_rope = cc[:, :t].to(dt), cr[:, :t, None, :].to(dt)
+        if cache is None or _long(s, t):
             y = self._explicit(q_nope, q_rope, c, k_rope, p)
         else:
             if s == 1:
-                telemetry.count("models.mla.latent_bytes", b * (p + 1) * (
+                telemetry.count("models.mla.latent_bytes", b * t * (
                     r * cc.element_size()
                     + cfg.rope_head_dim * cr.element_size()))
             q_abs = torch.einsum("bshk,rhk->bshr", q_nope,
@@ -525,8 +540,8 @@ class MLAttention(nn.Module):
             scores = (torch.einsum("bshr,btr->bhst", q_abs, c)
                       + torch.einsum("bshk,btk->bhst", q_rope, k_rope[:, :, 0])
                       ) * self.scale
-            if s > 1:
-                scores = torch.where(_causal(s, p, x.device),
+            if s > 1 or torch.is_tensor(p):
+                scores = torch.where(_causal(s, p, x.device, t),
                                      scores.float(), -1e30)
             w = torch.softmax(scores.float(), -1).to(dt)
             y_lat = torch.einsum("bhst,btr->bshr", w, c)

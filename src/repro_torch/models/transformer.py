@@ -27,6 +27,12 @@ Under autograd without caches, ``cfg.remat != "none"`` ("full" and
 "dots" alike) recomputes each block in the backward pass, where the
 reference applies ``jax.checkpoint``: an attention block, an SSM block,
 and the hybrid's SSM layer together with the shared block after it.
+
+On the card, a cached one-token forward of an attention model is one
+CUDA graph replay (:class:`DecodeGraph`): the model holds one graph, for
+one set of decode caches, captured on the first such forward over them
+and replayed with the position filled in on the device.  Where it
+engages is :meth:`Transformer.in_graph`; every other forward is eager.
 """
 from __future__ import annotations
 
@@ -41,10 +47,11 @@ from torch.utils.checkpoint import checkpoint
 from .. import telemetry
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .layers import (MLP, Attention, MLAttention, MoE, ParamDef, PumMLP,
-                     RMSNorm, SSMMixer, _cast, _dt, _param, _pdt, _sdpa,
-                     apply_rope, attention_defs, mla_defs, mlp_defs, moe_defs,
-                     rmsnorm_defs, ssm_cache_shape, ssm_defs)
+from .layers import (FLASH_DECODE_KEYS, MLP, Attention, MLAttention, MoE,
+                     ParamDef, PumMLP, RMSNorm, SSMMixer, _cast, _check_room,
+                     _dt, _param, _pdt, _sdpa, apply_rope, attention_defs,
+                     mla_defs, mlp_defs, moe_defs, rmsnorm_defs,
+                     ssm_cache_shape, ssm_defs)
 from .params import stack_defs, tree_leaves
 
 P = ParamDef
@@ -258,6 +265,10 @@ class Transformer(nn.Module):
     ``cfg.scan_layers`` does not change the computation: the layer loop
     is Python either way.  ``cfg.remat`` recomputes blocks in the backward
     pass (module docstring) and changes no value.
+
+    A one-token decode step on the card is a replay of the model's
+    :class:`DecodeGraph` where :meth:`in_graph` allows; the graph reads the
+    parameters it was captured with, so change them in place only.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -285,6 +296,7 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev, pdt)
         if not cfg.tie_embeddings:
             self.lm_head = _param(defs["lm_head"], dev, pdt)
+        self._graph = None
 
     def _names(self, path: str) -> list[str]:
         """The module's parameter names of a ``model_defs`` leaf: one per
@@ -348,13 +360,77 @@ class Transformer(nn.Module):
         caches (one token, or a cache-populating prefill), whose tensors
         are written in place, without autograd.  ``return_hidden=True``
         returns the final-norm hidden states (B,S,d) of the compute dtype
-        instead of logits (the chunked-vocab loss).
+        instead of logits (the chunked-vocab loss).  A forward on other
+        caches than the model's :class:`DecodeGraph`'s drops that graph
+        first; a one-token step that :meth:`in_graph` allows is the graph's
+        (:meth:`_graph_step`).
         """
         telemetry.count("models.forwards")
-        with torch.set_grad_enabled(torch.is_grad_enabled()
-                                    and caches is None), \
+        grad = torch.is_grad_enabled()
+        if self._graph is not None and not self._graph.serves(caches):
+            self._graph = None
+        with torch.set_grad_enabled(grad and caches is None), \
                 telemetry.span("models.forward"):
+            if not grad and not return_hidden and self.in_graph(batch, caches):
+                return self._graph_step(batch["tokens"], caches)
             return self._forward(batch, caches, return_hidden)
+
+    def in_graph(self, batch: dict, caches) -> bool:
+        """Whether a forward of ``batch`` on ``caches`` (without grad, for
+        logits) is a CUDA graph's step: an attention model (not enc-dec,
+        no M-RoPE, no int8 cache, no DTensor parameters) on the card, one
+        token a sequence of the caches' batch and nothing else in the
+        batch, and for GQA a cache of at most ``FLASH_DECODE_KEYS`` (past
+        it the flash path keeps a host offset)."""
+        cfg = self.cfg
+        if (caches is None or cfg.family not in ATTN_FAMILIES
+                or cfg.enc_dec or cfg.rope == "mrope"
+                or cfg.kv_cache_dtype == "int8" or len(batch) != 1):
+            return False
+        tokens = batch["tokens"]
+        b, t = caches["layers"]["c" if cfg.mla else "k"].shape[1:3]
+        if (tuple(tokens.shape) != (b, 1) or not _cuda(tokens)
+                or (not cfg.mla and t > FLASH_DECODE_KEYS)):
+            return False
+        # a graph held here serves these caches (the forward drops any
+        # other), and its capture checked the parameters
+        return self._graph is not None or not any(
+            isinstance(p, DTensor) for p in self.parameters())
+
+    def _graph_step(self, tokens, caches):
+        """One token a sequence through the graph of these caches, captured
+        here if the model holds none (that step runs eagerly, its output
+        returned); the positions advance on the host, which checks the
+        room first."""
+        layers, pos = caches["layers"], int(caches["pos"])
+        _check_room(pos, 1, layers["c" if self.cfg.mla else "k"].shape[2])
+        if self._graph is None:
+            self._graph, (logits, aux) = DecodeGraph.capture(
+                self._step_at, layers, tokens, pos)
+        else:
+            logits, aux = self._graph.replay(tokens, pos)
+        return logits, aux, {"layers": dict(layers, pos=layers["pos"] + 1),
+                             "pos": caches["pos"] + 1}
+
+    def _step_at(self, tokens, layers, pos):
+        """The one-token step a :class:`DecodeGraph` records: ``tokens``
+        (B, 1) at the position ``pos``, a device tensor of shape (1,)
+        (int64), written into the layer caches ``layers`` in place, each
+        layer attending over its whole cache with the keys past ``pos``
+        masked.  Reads no Python position and does not synchronise.
+        Returns ``(logits, aux)``."""
+        cfg = self.cfg
+        dt = _dt(cfg)
+        x = F.embedding(tokens, self.embed).to(dt)
+        positions = pos[None, :]
+        rope = self.blocks[0].attn.rope(positions, dt) if cfg.mla else None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, block in enumerate(self.blocks):
+            cache = {k: t[i] for k, t in layers.items() if k != "pos"}
+            cache["pos"] = pos
+            x, a, _ = block(x, positions, cache, rope=rope)
+            aux = aux + a
+        return self.logits(self.final_norm(x)), aux
 
     def _forward(self, batch, caches, return_hidden):
         cfg = self.cfg
@@ -479,6 +555,90 @@ class Transformer(nn.Module):
             x = x + _noncausal_self_attn(blk.attn, blk.ln1(x), pos)
             x = x + blk.ffn(blk.ln2(x))
         return self.enc_norm(x)
+
+
+def _cuda(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _uncounted(fn):
+    """``fn()`` and the counters it added, taken back out of the
+    registry: ``(result, {name: n})``."""
+    before = telemetry.snapshot()["counters"]
+    out = fn()
+    added = {k: n - before.get(k, 0)
+             for k, n in telemetry.snapshot()["counters"].items()
+             if n != before.get(k, 0)}
+    _recount({k: -n for k, n in added.items()})
+    return out, added
+
+
+def _recount(added: dict) -> None:
+    """Add each counter's ``added[name]`` to the registry."""
+    for k, n in added.items():
+        telemetry.count(k, n)
+
+
+class DecodeGraph:
+    """One-token decode steps over one set of decode caches as one CUDA
+    graph of ``step(tokens, layers, pos)`` (:meth:`Transformer._step_at`)
+    on static ``tokens`` and ``pos``.  :meth:`replay` fills the position
+    and the tokens in on the device, launches the graph on the caller's
+    stream (span ``models.graph.replay``; ``models.graph.replays``), adds
+    to the registry the counters the recorded step added (``counts``),
+    and returns copies of the outputs, so a later replay overwrites
+    nothing a caller holds."""
+
+    @classmethod
+    def capture(cls, step, layers: dict, tokens: torch.Tensor, pos: int):
+        """The first step over ``layers``'s caches at ``pos`` runs eagerly
+        on a side stream (the real step; it also warms that stream's
+        kernels and workspaces), then is recorded there, after the
+        allocator's unused cache is given back to the device, and joined
+        to the caller's stream by stream waits (``models.graph.captures``).
+        Returns ``(graph, (logits, aux))`` of that first step."""
+        g = cls()
+        dev = tokens.device
+        g.layers = {k: t for k, t in layers.items() if k != "pos"}
+        g.tokens = tokens.clone()
+        g.pos = torch.full((1,), pos, dtype=torch.long, device=dev)
+        g.graph = torch.cuda.CUDAGraph()
+
+        def record():
+            g.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                return step(g.tokens, g.layers, g.pos)
+            finally:
+                g.graph.capture_end()
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            first = step(g.tokens, g.layers, g.pos)
+            # a capture cannot give back memory the allocator caches unused
+            # (the prefill's, the caller's stream's): what the recording
+            # needs must be free on the device, so it is given back first,
+            # at the cost of one synchronisation a capture
+            torch.cuda.empty_cache()
+            (g.logits, g.aux), g.counts = _uncounted(record)
+        main.wait_stream(side)
+        for t in first:     # made on the side stream, used on the caller's
+            t.record_stream(main)
+        telemetry.count("models.graph.captures")
+        return g, first
+
+    def serves(self, caches) -> bool:
+        """Whether ``caches`` are the caches this graph writes."""
+        layers = (caches or {}).get("layers", {})
+        return all(layers.get(k) is t for k, t in self.layers.items())
+
+    def replay(self, tokens: torch.Tensor, pos: int):
+        self.pos.fill_(pos)
+        self.tokens.copy_(tokens)
+        with telemetry.span("models.graph.replay"):
+            self.graph.replay()
+        telemetry.count("models.graph.replays")
+        _recount(self.counts)
+        return self.logits.clone(), self.aux.clone()
 
 
 def check_cfg(model: Transformer, cfg: ModelConfig) -> None:
