@@ -1,9 +1,10 @@
 """Layers on ``torch``: RMSNorm, RoPE/M-RoPE (and DeepSeek-V2's YaRN
-frequencies), GQA attention with a plain, an online-softmax (flash) and a
-cached decode path, the int8 KV cache, MLA (DeepSeek-V2 latent attention,
-with its latent norm), the SwiGLU MLP with its binarized (PuM) variant,
-the top-k MoE (capacity-bound, or dropless with grouped expert products),
-and the Mamba2/SSD mixer.
+frequencies), GQA attention (one core, :func:`_sdpa`, plain or
+online-softmax (flash), over the step's keys or a cache), the int8 KV
+cache, MLA (DeepSeek-V2 latent attention, with its latent norm), the
+SwiGLU MLP with its binarized (PuM) variant, the top-k MoE
+(capacity-bound, or dropless with grouped expert products), and the
+Mamba2/SSD mixer.
 
 Conventions (the reference's, :mod:`repro.models.layers`)
 ---------------------------------------------------------
@@ -216,17 +217,17 @@ def _causal(s: int, q_offset, device, t: int | None = None):
     return torch.arange(keys, device=device)[None, :] <= qpos
 
 
-def _sdpa_naive(q, k, v, causal: bool, q_offset: int = 0):
-    """q: (B,S,H,hd); k/v: (B,T,KV,hd) — grouped by broadcasting."""
+def _sdpa_naive(q, k, v, causal: bool, q_offset=0):
+    """q: (B,S,H,hd); k/v: (B,T,KV,hd) — grouped by broadcasting.  Causal,
+    query i sits at position ``q_offset + i`` (a device tensor of shape
+    (1,) for a CUDA graph's step) and sees the keys up to it."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     q = q.reshape(b, s, kv, h // kv, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k) / math.sqrt(hd)
     scores = scores.float()
     if causal:
-        qpos = torch.arange(s, device=q.device)[:, None] + q_offset
-        kpos = torch.arange(t, device=q.device)[None, :]
-        scores = torch.where(qpos >= kpos, scores, -1e30)
+        scores = torch.where(_causal(s, q_offset, q.device, t), scores, -1e30)
     w = torch.softmax(scores, -1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(b, s, h, hd)
@@ -321,31 +322,19 @@ def _blockwise(fn, q, *rest):
                               run_check=False)
 
 
-def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
-    s, t = q.shape[1], k.shape[1]
-    if s * t <= FLASH_THRESHOLD * FLASH_THRESHOLD:
-        return _blockwise(lambda q, k, v: _sdpa_naive(q, k, v, causal,
-                                                      q_offset), q, k, v)
-    return _blockwise(lambda q, k, v: _flash_attn(q, k, v, causal,
-                                                  q_offset), q, k, v)
+def _flash(s: int, t: int) -> bool:
+    """Whether :func:`_sdpa` takes the online-softmax path for ``s``
+    queries over ``t`` keys: past ``FLASH_THRESHOLD``² scores a head, or
+    past ``FLASH_DECODE_KEYS`` keys (a long cache)."""
+    return _long(s, t) or t > FLASH_DECODE_KEYS
 
 
-def _masked_decode_attn(q, k, v, q_pos: int):
-    """Cached attention: query i (global position q_pos+i) attends to cache
-    positions ≤ its own (supports both 1-token decode and multi-token
-    cache-populating prefill).  Long caches take the online-softmax path."""
-    b, s, h, hd = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    if s * t > FLASH_THRESHOLD * FLASH_THRESHOLD or t > FLASH_DECODE_KEYS:
-        return _flash_attn(q, k, v, causal=True, q_offset=q_pos)
-    q = q.reshape(b, s, kv, h // kv, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", q, k) / math.sqrt(hd)
-    qpos = torch.arange(s, device=q.device)[:, None] + q_pos
-    kpos = torch.arange(t, device=q.device)[None, :]
-    scores = torch.where(kpos <= qpos, scores.float(), -1e30)
-    w = torch.softmax(scores, -1).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", w, v)
-    return out.reshape(b, s, h, hd)
+def _sdpa(q, k, v, causal: bool, q_offset=0):
+    """GQA attention, uncached or over a cache: plain scores
+    (:func:`_sdpa_naive`) or the online-softmax path (:func:`_flash_attn`,
+    whose ``q_offset`` is a host int) as :func:`_flash` decides."""
+    fn = _flash_attn if _flash(q.shape[1], k.shape[1]) else _sdpa_naive
+    return _blockwise(lambda q, k, v: fn(q, k, v, causal, q_offset), q, k, v)
 
 
 def _check_room(pos: int, s: int, t: int) -> None:
@@ -402,8 +391,7 @@ class Attention(nn.Module):
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
         if cache is None:
-            y = _sdpa(q, k, v, causal=True)
-            new_cache = None
+            p, new_cache = 0, None
         elif "k_scale" in cache:
             # int8-quantized KV cache: int8 codes + per-(token, head) scale
             p = cache["pos"]
@@ -411,19 +399,17 @@ class Attention(nn.Module):
             vq, vs = _quant(v)
             ck, cks = _write(cache["k"], kq, p), _write(cache["k_scale"], ks, p)
             cv, cvs = _write(cache["v"], vq, p), _write(cache["v_scale"], vs, p)
-            kd = ck.to(dt) * cks.to(dt)[..., None]
-            vd = cv.to(dt) * cvs.to(dt)[..., None]
-            y = _blockwise(lambda q, k, v: _masked_decode_attn(q, k, v, p),
-                           q, kd, vd)
+            k = ck.to(dt) * cks.to(dt)[..., None]
+            v = cv.to(dt) * cvs.to(dt)[..., None]
             new_cache = {"k": ck, "v": cv, "k_scale": cks, "v_scale": cvs,
                          "pos": p + q.shape[1]}
         else:
             p = cache["pos"]
             ck = _write(cache["k"], k, p)
             cv = _write(cache["v"], v, p)
-            y = _blockwise(lambda q, k, v: _masked_decode_attn(q, k, v, p),
-                           q, ck.to(dt), cv.to(dt))
+            k, v = ck.to(dt), cv.to(dt)
             new_cache = {"k": ck, "v": cv, "pos": p + q.shape[1]}
+        y = _sdpa(q, k, v, causal=True, q_offset=p)
         y = torch.einsum("bshk,hkd->bsd", y, _cast(self.wo, dt))
         return y, new_cache
 

@@ -30,9 +30,10 @@ and the hybrid's SSM layer together with the shared block after it.
 
 On the card, a cached one-token forward of an attention model is one
 CUDA graph replay (:class:`DecodeGraph`): the model holds one graph, for
-one set of decode caches, captured on the first such forward over them
-and replayed with the position filled in on the device.  Where it
-engages is :meth:`Transformer.in_graph`; every other forward is eager.
+one set of decode caches, which records the eager forward on the first
+such step over them and is replayed with the position filled in on the
+device.  Where it engages is :meth:`Transformer.in_graph`; every other
+forward is eager.
 """
 from __future__ import annotations
 
@@ -47,9 +48,9 @@ from torch.utils.checkpoint import checkpoint
 from .. import telemetry
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .layers import (FLASH_DECODE_KEYS, MLP, Attention, MLAttention, MoE,
-                     ParamDef, PumMLP, RMSNorm, SSMMixer, _cast, _check_room,
-                     _dt, _param, _pdt, _sdpa, apply_rope, attention_defs,
+from .layers import (MLP, Attention, MLAttention, MoE, ParamDef, PumMLP,
+                     RMSNorm, SSMMixer, _cast, _check_room, _dt, _flash,
+                     _param, _pdt, _sdpa, apply_rope, attention_defs,
                      mla_defs, mlp_defs, moe_defs, rmsnorm_defs,
                      ssm_cache_shape, ssm_defs)
 from .params import stack_defs, tree_leaves
@@ -380,8 +381,9 @@ class Transformer(nn.Module):
         logits) is a CUDA graph's step: an attention model (not enc-dec,
         no M-RoPE, no int8 cache, no DTensor parameters) on the card, one
         token a sequence of the caches' batch and nothing else in the
-        batch, and for GQA a cache of at most ``FLASH_DECODE_KEYS`` (past
-        it the flash path keeps a host offset)."""
+        batch, and for GQA a cache that one query attends over on the
+        plain path (:func:`~.layers._flash`; the flash path keeps a host
+        offset)."""
         cfg = self.cfg
         if (caches is None or cfg.family not in ATTN_FAMILIES
                 or cfg.enc_dec or cfg.rope == "mrope"
@@ -390,7 +392,7 @@ class Transformer(nn.Module):
         tokens = batch["tokens"]
         b, t = caches["layers"]["c" if cfg.mla else "k"].shape[1:3]
         if (tuple(tokens.shape) != (b, 1) or not _cuda(tokens)
-                or (not cfg.mla and t > FLASH_DECODE_KEYS)):
+                or (not cfg.mla and _flash(1, t))):
             return False
         # a graph held here serves these caches (the forward drops any
         # other), and its capture checked the parameters
@@ -406,31 +408,11 @@ class Transformer(nn.Module):
         _check_room(pos, 1, layers["c" if self.cfg.mla else "k"].shape[2])
         if self._graph is None:
             self._graph, (logits, aux) = DecodeGraph.capture(
-                self._step_at, layers, tokens, pos)
+                self._forward, caches, tokens, pos)
         else:
             logits, aux = self._graph.replay(tokens, pos)
         return logits, aux, {"layers": dict(layers, pos=layers["pos"] + 1),
                              "pos": caches["pos"] + 1}
-
-    def _step_at(self, tokens, layers, pos):
-        """The one-token step a :class:`DecodeGraph` records: ``tokens``
-        (B, 1) at the position ``pos``, a device tensor of shape (1,)
-        (int64), written into the layer caches ``layers`` in place, each
-        layer attending over its whole cache with the keys past ``pos``
-        masked.  Reads no Python position and does not synchronise.
-        Returns ``(logits, aux)``."""
-        cfg = self.cfg
-        dt = _dt(cfg)
-        x = F.embedding(tokens, self.embed).to(dt)
-        positions = pos[None, :]
-        rope = self.blocks[0].attn.rope(positions, dt) if cfg.mla else None
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, block in enumerate(self.blocks):
-            cache = {k: t[i] for k, t in layers.items() if k != "pos"}
-            cache["pos"] = pos
-            x, a, _ = block(x, positions, cache, rope=rope)
-            aux = aux + a
-        return self.logits(self.final_norm(x)), aux
 
     def _forward(self, batch, caches, return_hidden):
         cfg = self.cfg
@@ -442,29 +424,31 @@ class Transformer(nn.Module):
         # in bf16 the backward's scatter-add of repeated tokens then sums in
         # float32 here and in bf16 there (within the bf16 tolerance)
         x = F.embedding(tokens, _whole_table(self.embed)).to(dt)
-        start = int(caches["pos"]) if caches is not None else 0
+        s = tokens.shape[1]
+        # a cached forward starts at the caches' host counter (0-d), or at
+        # the device tensor of shape (1,) that a DecodeGraph records with
+        start = 0 if caches is None else caches["pos"]
+        if torch.is_tensor(start) and start.ndim == 0:
+            start = int(start)
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(start, start + tokens.shape[1],
-                                     device=tokens.device)[None, :]
+            positions = (torch.arange(s, device=tokens.device)
+                         + start)[None, :]
         mrope = batch.get("mrope_positions")
         encoder_out = self._encode(batch, caches) if cfg.enc_dec else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = None if caches is None else {}
         if cfg.family in ATTN_FAMILIES:
             layers = caches["layers"] if caches is not None else None
-            layer_pos = []
             # MLA: the rope's cos/sin, made once for every layer
             rope = self.blocks[0].attn.rope(positions, dt) if cfg.mla else None
             for i, block in enumerate(self.blocks):
-                x, a, nc = _call(remat, block, x, positions,
-                                 _layer_cache(layers, i), mrope, encoder_out,
-                                 rope)
+                x, a, _ = _call(remat, block, x, positions,
+                                _layer_cache(layers, i, start), mrope,
+                                encoder_out, rope)
                 aux = aux + a
-                if nc is not None:
-                    layer_pos.append(nc["pos"])
             if caches is not None:
-                new_caches["layers"] = dict(layers, pos=_pos(layer_pos))
+                new_caches["layers"] = dict(layers, pos=layers["pos"] + s)
         elif cfg.family == "ssm":
             layers = caches["layers"] if caches is not None else None
             x, new_layers = self._ssm_stack(x, layers, remat=remat)
@@ -478,7 +462,7 @@ class Transformer(nn.Module):
             raise ValueError(cfg.family)
         x = self.final_norm(x)
         if caches is not None:
-            new_caches["pos"] = caches["pos"] + tokens.shape[1]
+            new_caches["pos"] = caches["pos"] + s
             if cfg.enc_dec:
                 new_caches["encoder_out"] = encoder_out
         if return_hidden:
@@ -503,18 +487,17 @@ class Transformer(nn.Module):
                 x = shared(i, x)
             return x, nc
 
-        convs, layer_pos = [], []
+        convs = []
         for i, block in enumerate(self.ssm_blocks):
             x, nc = _call(remat, body, i, block, x, _layer_cache(layers, i))
             if nc is not None:
                 convs.append(nc["conv"])
-                layer_pos.append(nc["pos"])
         if layers is None:
             return x, None
         conv = layers["conv"]
         if convs and convs[0].dtype != conv.dtype:
             conv = torch.stack(convs)
-        return x, dict(layers, conv=conv, pos=_pos(layer_pos))
+        return x, dict(layers, conv=conv, pos=layers["pos"] + x.shape[1])
 
     def _hybrid_stack(self, x, positions, caches, remat: bool = False):
         """Zamba2-style: Mamba2 layers with the single weight-tied attention
@@ -581,8 +564,11 @@ def _recount(added: dict) -> None:
 
 class DecodeGraph:
     """One-token decode steps over one set of decode caches as one CUDA
-    graph of ``step(tokens, layers, pos)`` (:meth:`Transformer._step_at`)
-    on static ``tokens`` and ``pos``.  :meth:`replay` fills the position
+    graph of the model's eager forward (:meth:`Transformer._forward`) on
+    static ``tokens`` and a static device position ``pos`` (int64, shape
+    (1,)): each layer writes its cache there and attends over the whole
+    cache with the keys past it masked, and nothing reads a Python
+    position or synchronises.  :meth:`replay` fills the position
     and the tokens in on the device, launches the graph on the caller's
     stream (span ``models.graph.replay``; ``models.graph.replays``), adds
     to the registry the counters the recorded step added (``counts``),
@@ -590,30 +576,37 @@ class DecodeGraph:
     nothing a caller holds."""
 
     @classmethod
-    def capture(cls, step, layers: dict, tokens: torch.Tensor, pos: int):
-        """The first step over ``layers``'s caches at ``pos`` runs eagerly
-        on a side stream (the real step; it also warms that stream's
-        kernels and workspaces), then is recorded there, after the
-        allocator's unused cache is given back to the device, and joined
-        to the caller's stream by stream waits (``models.graph.captures``).
-        Returns ``(graph, (logits, aux))`` of that first step."""
+    def capture(cls, forward, caches: dict, tokens: torch.Tensor, pos: int):
+        """The first step of ``forward(batch, caches, return_hidden)`` over
+        ``caches`` at ``pos`` runs eagerly on a side stream (the real step;
+        it also warms that stream's kernels and workspaces), then is
+        recorded there, after the allocator's unused cache is given back
+        to the device, and joined to the caller's stream by stream waits
+        (``models.graph.captures``).  Returns ``(graph, (logits, aux))`` of
+        that first step."""
         g = cls()
         dev = tokens.device
-        g.layers = {k: t for k, t in layers.items() if k != "pos"}
+        g.layers = {k: t for k, t in caches["layers"].items() if k != "pos"}
         g.tokens = tokens.clone()
         g.pos = torch.full((1,), pos, dtype=torch.long, device=dev)
         g.graph = torch.cuda.CUDAGraph()
 
+        def step():
+            # the new caches it returns are dropped: the caller advances
+            # the host counters
+            return forward({"tokens": g.tokens}, dict(caches, pos=g.pos),
+                           False)[:2]
+
         def record():
             g.graph.capture_begin(capture_error_mode="thread_local")
             try:
-                return step(g.tokens, g.layers, g.pos)
+                return step()
             finally:
                 g.graph.capture_end()
         main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            first = step(g.tokens, g.layers, g.pos)
+            first = step()
             # a capture cannot give back memory the allocator caches unused
             # (the prefill's, the caller's stream's): what the recording
             # needs must be free on the device, so it is given back first,
@@ -673,18 +666,15 @@ def _call(remat: bool, fn, *args):
                       preserve_rng_state=False)
 
 
-def _layer_cache(layers, i: int):
-    """Layer ``i``'s view of stacked layer caches (None without), its
-    ``pos`` a Python int."""
+def _layer_cache(layers, i: int, pos=None):
+    """Layer ``i``'s view of stacked layer caches (None without) at
+    ``pos``: a Python int, or a device tensor of shape (1,); the layer's
+    own ``pos`` as an int unless given."""
     if layers is None:
         return None
     lcache = {k: t[i] for k, t in layers.items() if k != "pos"}
-    lcache["pos"] = int(layers["pos"][i])
+    lcache["pos"] = int(layers["pos"][i]) if pos is None else pos
     return lcache
-
-
-def _pos(layer_pos: list[int]) -> torch.Tensor:
-    return torch.tensor(layer_pos, dtype=torch.int32)
 
 
 @torch.no_grad()

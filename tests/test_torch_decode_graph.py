@@ -1,6 +1,7 @@
-"""The one-token decode step a CUDA graph records (``Transformer._step_at``,
-``DecodeGraph``).  On the CPU: the step at a device-side position against
-the eager step, every position to the cache's last slot; where the graph
+"""The one-token decode step a CUDA graph records (``DecodeGraph``, which
+records ``Transformer._forward``).  On the CPU: the forward at a
+device-side position against the forward at the host position, every
+position to the cache's last slot; where the graph
 engages (``Transformer.in_graph`` through the forward, the card's test
 ``transformer._cuda`` stood in for); the counters a replay adds; the
 overflow check; and the drop of a graph by a forward on other caches.
@@ -9,9 +10,9 @@ eager decode, its captures and replays, no synchronisation in a replay,
 and a second request dropping the first request's graph.
 
 Tolerances are the port's prefill/decode rules: 1e-4 × max|logit| in
-float32 and 5e-2 in bf16 (the step attends over the whole cache with the
-keys past the position masked, so only zero weights and the reduction
-length differ from the eager step's).
+float32 and 5e-2 in bf16 (at a device position MLA attends over the whole
+cache with the keys past the position masked, so only zero weights and
+the reduction length differ from the host position's step).
 """
 import dataclasses
 import weakref
@@ -27,7 +28,7 @@ from repro_torch.serve.decode import greedy_decode
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 STEPS = [("deepseek-v2-lite", "float32"), ("deepseek-v2-lite", "bfloat16"),
-         ("olmoe-1b-7b", "bfloat16")]
+         ("olmoe-1b-7b", "bfloat16"), ("qwen1.5-0.5b", "bfloat16")]
 
 
 def model_of(arch: str, dtype: str = "bfloat16", device="cpu", seed: int = 29,
@@ -63,10 +64,13 @@ def test_the_step_at_a_device_position_equals_the_eager_step(arch, dtype):
         _, _, graphed = m({"tokens": tok[:, :prompt]}, graphed)
         for p in range(prompt, t):           # up to the cache's last slot
             want, _, eager = m({"tokens": tok[:, p:p + 1]}, eager)
-            got, _ = m._step_at(tok[:, p:p + 1], graphed["layers"],
-                                torch.tensor([p]))
+            # the position a graph records with (a CPU tensor stands in)
+            got, _, new = m({"tokens": tok[:, p:p + 1]},
+                            dict(graphed, pos=torch.tensor([p])))
             assert got.shape == want.shape == (2, 1, cfg.vocab)
             assert rel_err(got, want) <= TOL[dtype], p
+            assert torch.equal(new["layers"]["pos"], eager["layers"]["pos"])
+            graphed = dict(new, pos=eager["pos"])
     for k, c in eager["layers"].items():
         if k != "pos":
             assert rel_err(graphed["layers"][k], c) <= TOL[dtype], k
@@ -161,9 +165,9 @@ def test_a_replay_adds_the_counts_the_recorded_step_added():
     telemetry.count("models.mla.latent_bytes", 5)    # counts already there
     before = telemetry.snapshot()["counters"]
     with torch.no_grad():
-        (logits, _), counts = transformer._uncounted(
-            lambda: m._step_at(tokens(2, 1), caches["layers"],
-                               torch.tensor([6])))
+        (logits, _, _), counts = transformer._uncounted(
+            lambda: m._forward({"tokens": tokens(2, 1)},
+                               dict(caches, pos=torch.tensor([6])), False))
     assert logits.shape == (2, 1, cfg.vocab)
     assert telemetry.snapshot()["counters"] == before
     assert counts == {

@@ -225,8 +225,8 @@ def test_scan_layers_gives_the_same_result(arch):
 @pytest.mark.parametrize("arch", ["qwen1_5_0_5b", "qwen2_vl_2b"])
 def test_prefill_through_bf16_cache_matches_reference(arch):
     """``greedy_decode``'s path: the prompt goes through zeroed caches of
-    the default bf16 dtype (``_masked_decode_attn``, not ``_sdpa``), in
-    float32 compute."""
+    the default bf16 dtype (``_sdpa`` over the cache at the prompt's
+    offset, not over the prompt's own keys), in float32 compute."""
     rcfg, params, pcfg, model = models(arch, compute_dtype="float32")
     b, s, t = 2, 10, 16
     rb, pb = batches(rcfg, tokens(rcfg, b, s, seed=7))
@@ -389,15 +389,16 @@ def test_flash_attention_with_offset_and_kv_len():
 
 @pytest.mark.parametrize("flash", [False, True])
 def test_masked_decode_attn_paths(flash, monkeypatch):
-    """Both of ``_masked_decode_attn``'s paths (the flash one taken by
-    lowering the threshold in both packages), port vs reference and
-    against the naive causal attention at that offset."""
+    """Cached attention (``_sdpa`` at a query offset) on both of its paths
+    (the flash one taken by lowering the threshold in both packages),
+    against the reference's ``_masked_decode_attn`` and against the naive
+    causal attention at that offset."""
     q, k, v = qkv(2, 3, 20, 4, 2, 8, seed=2)
     if flash:
         monkeypatch.setattr(port_layers, "FLASH_THRESHOLD", 4)
         monkeypatch.setattr(ref_layers, "FLASH_THRESHOLD", 4)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
-    got = port_layers._masked_decode_attn(tq, tk, tv, 6)
+    got = port_layers._sdpa(tq, tk, tv, causal=True, q_offset=6)
     want = ref_layers._masked_decode_attn(q, k, v, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
     # only cache positions ≤ 6 + i are visible to query i
