@@ -13,10 +13,14 @@ Conventions (the reference's, :mod:`repro.models.layers`)
   :class:`MLP`, :class:`PumMLP`, :class:`MoE`, :class:`SSMMixer`) holds parameters of those names and shapes, so a reference parameter
   tree loads into it leaf for leaf;
 * parameters are stored in ``cfg.param_dtype`` (float32 in the ten
-  configs the reference shares) and cast to ``cfg.compute_dtype`` at each
-  use (``_cast``, which counts the bytes in ``models.weight_cast_bytes``);
-  every cast, upcast and rounding happens in the reference's order,
-  so bf16 results round where the reference's do;
+  configs the reference shares) and used in ``cfg.compute_dtype``
+  (``_cast``, which counts the bytes a cast reads and writes in
+  ``models.weight_cast_bytes``): under grad cast at each use, so
+  gradients reach them; without grad cast once into a copy the parameter
+  keeps (:class:`_Copy`), which later uses share while the parameter
+  holds the values it was cast from.  Every cast, upcast and rounding
+  happens in the reference's order, so bf16 results round where the
+  reference's do;
 * decode paths take explicit caches and write this step's keys and values
   into them in place (the cache tensors are the caller's; only ``pos``
   is returned anew).  A write past the cache's end raises instead of
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from .. import telemetry
 from ..configs.base import ModelConfig
@@ -55,14 +60,85 @@ def _pdt(cfg: ModelConfig) -> torch.dtype:
 
 
 def _cast(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """Weight ``w`` in ``dt``, cast at its use; a cast that changes the
-    dtype adds the bytes it reads and writes to the
-    ``models.weight_cast_bytes`` counter."""
+    """Weight ``w`` in ``dt``.  A cast that changes the dtype adds the
+    bytes it reads and writes to the ``models.weight_cast_bytes`` counter.
+    Without grad a parameter (a leaf ``nn.Parameter``, not a DTensor nor a
+    tensor made from one) is served its :class:`_Copy` in ``dt``, cast
+    here at its first such use or after the parameter changed; anything
+    else, and any use under grad, is cast at its use."""
     if w.dtype == dt:
         return w
+    if type(w) is nn.Parameter and not torch.is_grad_enabled():
+        return _copy_of(w, dt)
+    _count_cast(w, dt)
+    return w.to(dt)
+
+
+def _count_cast(w: torch.Tensor, dt: torch.dtype) -> None:
     telemetry.count("models.weight_cast_bytes",
                     w.numel() * (w.element_size() + dt.itemsize))
-    return w.to(dt)
+
+
+class _Copy:
+    """A parameter's values in another dtype, kept on the parameter
+    (``_cast_copy``) and shared by its uses without grad.  It holds while
+    the parameter has the version counter, data pointer and storage of
+    its last fill: an in-place change (an optimizer step, ``copy_``,
+    ``load_state_dict``) moves the counter; ``.data =`` keeps the counter
+    but not the storage; a parameter replaced by another object has no
+    copy.  A change made through ``.data`` in place moves nothing and is
+    not seen.  A refill writes the same tensor in place (``out``'s address
+    never changes, so a CUDA graph that reads it stays valid), on the
+    current stream (``models.weight_cache.fills``, its bytes in
+    ``models.weight_cast_bytes``)."""
+
+    __slots__ = ("out", "version", "ptr", "storage")
+
+    def __init__(self, w: torch.Tensor, dt: torch.dtype):
+        self.out = torch.empty_like(w, dtype=dt, requires_grad=False)
+        self.fill(w)
+
+    def holds(self, w: torch.Tensor) -> bool:
+        return (w._version == self.version and w.data_ptr() == self.ptr
+                and not self.storage.expired())
+
+    def fill(self, w: torch.Tensor) -> None:
+        _count_cast(w, self.out.dtype)
+        telemetry.count("models.weight_cache.fills")
+        self.out.copy_(w.detach())
+        self.version, self.ptr = w._version, w.data_ptr()
+        self.storage = StorageWeakRef(w.untyped_storage())
+
+    def __reduce__(self):
+        # a pickled parameter carries no copy: the storage reference means
+        # nothing in another process
+        return type(None), ()
+
+
+def _copy_of(w: nn.Parameter, dt: torch.dtype) -> torch.Tensor:
+    """``w``'s :class:`_Copy` in ``dt`` (``models.weight_cache.hits``),
+    refilled in place if ``w`` changed, made anew if ``w`` keeps none of
+    ``dt`` and ``w``'s layout.  A CUDA graph's capture fills none: a miss
+    there casts at its use (the recording then redoes that cast)."""
+    c = _kept_copy(w)
+    kept = (c is not None and c.out.dtype == dt
+            and c.out.shape == w.shape and c.out.stride() == w.stride())
+    if kept and c.holds(w):
+        telemetry.count("models.weight_cache.hits")
+        return c.out
+    if w.is_cuda and torch.cuda.is_current_stream_capturing():
+        _count_cast(w, dt)
+        return w.to(dt)
+    if kept:
+        c.fill(w)
+    else:
+        c = w._cast_copy = _Copy(w, dt)
+    return c.out
+
+
+def _kept_copy(w: torch.Tensor) -> _Copy | None:
+    """The :class:`_Copy` parameter ``w`` keeps, if any."""
+    return getattr(w, "_cast_copy", None)
 
 
 def _param(d: ParamDef, device, dtype: torch.dtype = torch.float32

@@ -33,7 +33,8 @@ CUDA graph replay (:class:`DecodeGraph`): the model holds one graph, for
 one set of decode caches, which records the eager forward on the first
 such step over them and is replayed with the position filled in on the
 device.  Where it engages is :meth:`Transformer.in_graph`; every other
-forward is eager.
+forward is eager.  Without grad (every cached forward) the weights are
+the parameters' compute-dtype copies, cast once (``layers._cast``).
 """
 from __future__ import annotations
 
@@ -50,9 +51,9 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .layers import (MLP, Attention, MLAttention, MoE, ParamDef, PumMLP,
                      RMSNorm, SSMMixer, _cast, _check_room, _dt, _flash,
-                     _param, _pdt, _sdpa, apply_rope, attention_defs,
-                     mla_defs, mlp_defs, moe_defs, rmsnorm_defs,
-                     ssm_cache_shape, ssm_defs)
+                     _kept_copy, _param, _pdt, _sdpa, apply_rope,
+                     attention_defs, mla_defs, mlp_defs, moe_defs,
+                     rmsnorm_defs, ssm_cache_shape, ssm_defs)
 from .params import stack_defs, tree_leaves
 
 P = ParamDef
@@ -269,7 +270,9 @@ class Transformer(nn.Module):
 
     A one-token decode step on the card is a replay of the model's
     :class:`DecodeGraph` where :meth:`in_graph` allows; the graph reads the
-    parameters it was captured with, so change them in place only.
+    parameters it was captured with, and their compute-dtype copies, which
+    a replay first refills where a parameter's version counter moved, so
+    change them in place only.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
@@ -408,7 +411,7 @@ class Transformer(nn.Module):
         _check_room(pos, 1, layers["c" if self.cfg.mla else "k"].shape[2])
         if self._graph is None:
             self._graph, (logits, aux) = DecodeGraph.capture(
-                self._forward, caches, tokens, pos)
+                self._forward, caches, tokens, pos, self.parameters())
         else:
             logits, aux = self._graph.replay(tokens, pos)
         return logits, aux, {"layers": dict(layers, pos=layers["pos"] + 1),
@@ -472,8 +475,10 @@ class Transformer(nn.Module):
     def logits(self, x):
         """float32 logits (B,S,V) of final-norm hidden states ``x``."""
         cfg = self.cfg
-        head = self.embed.t() if cfg.tie_embeddings else self.lm_head
-        return torch.einsum("bsd,dv->bsv", x, _cast(head, _dt(cfg))).float()
+        dt = _dt(cfg)
+        head = (_cast(self.embed, dt).t() if cfg.tie_embeddings
+                else _cast(self.lm_head, dt))
+        return torch.einsum("bsd,dv->bsv", x, head).float()
 
     def _ssm_stack(self, x, layers, shared=None, remat: bool = False):
         """The SSM layers over ``x``; ``shared(i, x)`` (hybrid) runs after
@@ -568,22 +573,27 @@ class DecodeGraph:
     static ``tokens`` and a static device position ``pos`` (int64, shape
     (1,)): each layer writes its cache there and attends over the whole
     cache with the keys past it masked, and nothing reads a Python
-    position or synchronises.  :meth:`replay` fills the position
-    and the tokens in on the device, launches the graph on the caller's
-    stream (span ``models.graph.replay``; ``models.graph.replays``), adds
-    to the registry the counters the recorded step added (``counts``),
-    and returns copies of the outputs, so a later replay overwrites
-    nothing a caller holds."""
+    position or synchronises.  :meth:`replay` refills in place the
+    compute-dtype copy (``layers._Copy``) of each parameter in ``weights``
+    whose version counter moved since its fill, fills the position and the
+    tokens in on the device, launches the graph on the caller's stream
+    (span ``models.graph.replay``; ``models.graph.replays``), adds to the
+    registry the counters the recorded step added (``counts``), and
+    returns copies of the outputs, so a later replay overwrites nothing a
+    caller holds."""
 
     @classmethod
-    def capture(cls, forward, caches: dict, tokens: torch.Tensor, pos: int):
+    def capture(cls, forward, caches: dict, tokens: torch.Tensor, pos: int,
+                params):
         """The first step of ``forward(batch, caches, return_hidden)`` over
         ``caches`` at ``pos`` runs eagerly on a side stream (the real step;
-        it also warms that stream's kernels and workspaces), then is
+        it also warms that stream's kernels and workspaces, and casts the
+        copies of ``params`` it reads if none were cast before), then is
         recorded there, after the allocator's unused cache is given back
         to the device, and joined to the caller's stream by stream waits
-        (``models.graph.captures``).  Returns ``(graph, (logits, aux))`` of
-        that first step."""
+        (``models.graph.captures``).  The graph keeps ``weights``: each of
+        ``params`` that has a copy then, with it.  Returns ``(graph,
+        (logits, aux))`` of that first step."""
         g = cls()
         dev = tokens.device
         g.layers = {k: t for k, t in caches["layers"].items() if k != "pos"}
@@ -614,7 +624,10 @@ class DecodeGraph:
             torch.cuda.empty_cache()
             (g.logits, g.aux), g.counts = _uncounted(record)
         main.wait_stream(side)
-        for t in first:     # made on the side stream, used on the caller's
+        g.weights = [(p, c) for p in params
+                     if (c := _kept_copy(p)) is not None]
+        # made on the side stream (a copy perhaps), used on the caller's
+        for t in (*first, *(c.out for _, c in g.weights)):
             t.record_stream(main)
         telemetry.count("models.graph.captures")
         return g, first
@@ -625,6 +638,9 @@ class DecodeGraph:
         return all(layers.get(k) is t for k, t in self.layers.items())
 
     def replay(self, tokens: torch.Tensor, pos: int):
+        for w, c in self.weights:
+            if w._version != c.version:
+                c.fill(w)
         self.pos.fill_(pos)
         self.tokens.copy_(tokens)
         with telemetry.span("models.graph.replay"):

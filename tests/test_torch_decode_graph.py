@@ -4,10 +4,13 @@ device-side position against the forward at the host position, every
 position to the cache's last slot; where the graph
 engages (``Transformer.in_graph`` through the forward, the card's test
 ``transformer._cuda`` stood in for); the counters a replay adds; the
-overflow check; and the drop of a graph by a forward on other caches.
-On the card (``gpu``): greedy decoding through the graph against the
-eager decode, its captures and replays, no synchronisation in a replay,
-and a second request dropping the first request's graph.
+overflow check; the drop of a graph by a forward on other caches; and
+a replay refilling the weight copies of parameters changed in place
+before it launches.  On the card (``gpu``): greedy decoding through the
+graph against the eager decode, its captures and replays, no
+synchronisation in a replay, a second request dropping the first
+request's graph, and the weight copies: cast once, outside the graph's
+pool, and refilled for a replay after a parameter changed.
 
 Tolerances are the port's prefill/decode rules: 1e-4 × max|logit| in
 float32 and 5e-2 in bf16 (at a device position MLA attends over the whole
@@ -198,6 +201,44 @@ def test_a_forward_on_other_caches_drops_the_graph():
     assert m._graph is None
 
 
+class _Launch:
+    """Stands in for a recorded CUDA graph: a replay notes the copy the
+    graph would read."""
+
+    def __init__(self, copy):
+        self.copy, self.seen = copy, []
+
+    def replay(self):
+        self.seen.append(self.copy.out.clone())
+
+
+def test_a_replay_refills_changed_weights_before_it_launches():
+    m = model_of("olmoe-1b-7b", "bfloat16")
+    _prefilled(m)                       # casts every weight's copy once
+    weights = [(p, c) for p in m.parameters()
+               if (c := layers._kept_copy(p)) is not None]
+    w = m.get_parameter("blocks.1.ffn.w_down")
+    c = layers._kept_copy(w)
+    g = DecodeGraph()
+    g.weights, g.graph = weights, _Launch(c)
+    g.tokens, g.pos = tokens(2, 1), torch.zeros(1, dtype=torch.long)
+    g.logits, g.aux, g.counts = torch.zeros(2, 1, 4), torch.zeros(()), {}
+    telemetry.reset("models.weight_cache.fills", "models.weight_cast_bytes")
+    g.replay(tokens(2, 1), 6)
+    assert telemetry.counter("models.weight_cache.fills") == 0
+    with torch.no_grad():
+        w.mul_(-2)
+    ptr = c.out.data_ptr()
+    g.replay(tokens(2, 1), 7)
+    g.replay(tokens(2, 1), 8)
+    assert torch.equal(g.graph.seen[1], w.detach().to(torch.bfloat16))
+    assert torch.equal(g.graph.seen[2], g.graph.seen[1])
+    assert not torch.equal(g.graph.seen[1], g.graph.seen[0])
+    assert c.out.data_ptr() == ptr
+    assert telemetry.counter("models.weight_cache.fills") == 1
+    assert telemetry.counter("models.weight_cast_bytes") == 6 * w.numel()
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -283,3 +324,99 @@ def test_a_second_request_drops_the_first_requests_graph():
     # gone before the second request's prefill ran its first layer
     assert alive[0] is False
     assert m._graph is not None and first() is None
+
+
+def _default_pool(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies in a segment of the allocator's own pool, not a
+    CUDA graph's private one."""
+    ptr = t.data_ptr()
+    for seg in torch.cuda.memory_snapshot():
+        if seg["address"] <= ptr < seg["address"] + seg["total_size"]:
+            return tuple(seg["segment_pool_id"]) == (0, 0)
+    raise AssertionError(f"no segment holds {ptr:#x}")
+
+
+def _one_token_steps(m, toks, steps: int):
+    """``steps`` one-token forwards from empty caches (no prefill): the
+    first is the graph's capture.  Returns the tokens fed and every
+    step's logits."""
+    caches = init_caches(m.cfg, toks.shape[0], steps, device=toks.device)
+    logits = []
+    with torch.no_grad():
+        for p in range(steps):
+            out, _, caches = m({"tokens": toks[:, p:p + 1]}, caches)
+            logits.append(out[:, -1].float())
+    return toks[:, :steps], torch.stack(logits)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first_cast", ["prefill", "capture"])
+def test_decoding_with_the_weight_copies_is_bit_equal_to_the_eager_decode(
+        first_cast, monkeypatch):
+    """Reduced OLMoE (float32 parameters, bf16 compute): every weight is
+    cast once, by greedy decoding's prefill on the caller's stream or by
+    a graph's first step on the capture's side stream, outside the
+    graph's pool; the graph and the eager decode read the copies alike,
+    logits bit-equal."""
+    dev = cuda_or_skip()
+    m = model_of("olmoe-1b-7b", device=dev)
+    n_cast = sum(p.dtype == torch.float32 and not n.endswith(".router")
+                 and n != "embed" for n, p in m.named_parameters())
+    steps = 12
+
+    def run():
+        if first_cast == "prefill":
+            return _decode(m, tokens(4, 20, dev), steps)
+        return _one_token_steps(m, tokens(4, steps, dev), steps)
+    telemetry.reset("models.weight_cache.fills", "models.weight_cache.hits",
+                    "models.graph.captures")
+    got, got_logits = run()
+    counters = telemetry.snapshot()["counters"]
+    assert counters["models.graph.captures"] == 1
+    assert counters["models.weight_cache.fills"] == n_cast
+    assert counters["models.weight_cache.hits"] == (steps - 1) * n_cast
+    assert len(m._graph.weights) == n_cast
+    assert all(_default_pool(c.out) for _, c in m._graph.weights)
+    monkeypatch.setattr(transformer, "_cuda", lambda t: False)
+    want, want_logits = run()
+    assert telemetry.counter("models.weight_cache.fills") == n_cast
+    assert torch.equal(got, want)
+    assert torch.equal(got_logits, want_logits)
+
+
+@pytest.mark.gpu
+def test_a_replay_after_a_weight_changed_serves_the_new_weights(
+        monkeypatch):
+    """Weights changed in place between two replays: the next replay,
+    under the sync-debug mode "error", equals an eager step of a model
+    that held the changed weights from the start, bit for bit."""
+    dev = cuda_or_skip()
+    m = model_of("olmoe-1b-7b", device=dev)
+    cfg = m.cfg
+    toks = tokens(4, 24, dev)
+    caches = init_caches(cfg, 4, 24, device=dev)
+    telemetry.reset("models.graph.replays")
+    with torch.no_grad():
+        caches = m({"tokens": toks[:, :20]}, caches)[2]
+        for p in (20, 21):                       # capture, then a replay
+            caches = m({"tokens": toks[:, p:p + 1]}, caches)[2]
+        assert telemetry.counter("models.graph.replays") == 1
+        changed = ("blocks.0.attn.wq", "blocks.1.ffn.w_up", "lm_head")
+        for name in changed:
+            m.get_parameter(name).mul_(-1.5)
+        saved = {k: t.clone() for k, t in caches["layers"].items()}
+        telemetry.reset("models.weight_cache.fills")
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = m({"tokens": toks[:, 22:23]}, caches)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        assert telemetry.counter("models.weight_cache.fills") == len(changed)
+        for k, t in saved.items():
+            caches["layers"][k].copy_(t)
+        fresh = model_of("olmoe-1b-7b", device=dev)
+        fresh.load_state_dict(m.state_dict())
+        monkeypatch.setattr(transformer, "_cuda", lambda t: False)
+        want = fresh({"tokens": toks[:, 22:23]}, caches)[0]
+    assert torch.equal(got, want)
