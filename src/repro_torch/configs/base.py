@@ -184,6 +184,78 @@ class DeepSeekV2Config(ModelConfig):
 
 
 @dataclasses.dataclass(frozen=True)
+class NemotronHConfig(ModelConfig):
+    """A ``nemotron_h`` hybrid (port only): one single-mixer pre-norm block
+    a letter of ``block_pattern`` — ``M`` a grouped Mamba-2 mixer, ``E`` a
+    dropless MoE of non-gated relu² experts under a sigmoid router, ``*``
+    GQA attention without positions (``rope="none"``).  The Mamba-2 inner
+    width is ``ssm_heads × ssm_head_dim`` (not ``ssm_expand · d_model``),
+    head h reading B/C group ``h // (ssm_heads / ssm_groups)``.  The MoE
+    holds ``experts_held`` of the router's ``n_experts`` (0: all), from
+    ``first_expert`` on: a chip's share under expert parallelism."""
+    block_pattern: str = ""
+    ssm_head_dim: int = 64
+    ssm_groups: int = 1
+    conv_bias: bool = True
+    ffn_act: str = "relu2"
+    router: str = "sigmoid"
+    routed_scaling: float = 1.0
+    shared_expert_width: int = 0
+    experts_held: int = 0
+    first_expert: int = 0
+
+    LETTERS = {"M": "ssm", "E": "moe", "*": "attn"}
+
+    def __post_init__(self):
+        for field, value, want in (("ffn_act", self.ffn_act, "relu2"),
+                                   ("router", self.router, "sigmoid")):
+            if value != want:
+                raise ValueError(f"{field} = {value!r}: the port computes "
+                                 f"{want!r} only")
+        if not 0 <= self.first_expert < self.first_expert + self.held \
+                <= self.n_experts:
+            raise ValueError(f"experts {self.first_expert}.."
+                             f"{self.first_expert + self.held - 1} are not "
+                             f"among the router's {self.n_experts}")
+        if self.ssm_heads % self.ssm_groups:
+            raise ValueError("ssm_heads must be a multiple of ssm_groups")
+
+    @property
+    def held(self) -> int:
+        """Experts this model holds of each MoE layer."""
+        return self.experts_held or self.n_experts
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_heads * self.ssm_head_dim
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads
+
+    def pattern(self) -> tuple[str, ...]:
+        assert len(self.block_pattern) == self.n_layers
+        return tuple(self.LETTERS[c] for c in self.block_pattern)
+
+    def param_count(self) -> int:
+        """Parameters held: embedding, untied head, final norm, and each
+        block's norm and mixer (the MoE's router over all ``n_experts``,
+        its choice bias, the ``held`` experts and the shared expert)."""
+        d, v = self.d_model, self.vocab
+        di, nh = self.d_inner, self.n_ssm_heads
+        ch = di + 2 * self.ssm_groups * self.ssm_state
+        per = {
+            "ssm": d * (di + ch + nh) + 4 * ch + ch * self.conv_bias
+            + 3 * nh + di + di * d,
+            "moe": (d + 1) * self.n_experts
+            + 2 * d * (self.held * self.d_expert + self.shared_expert_width),
+            "attn": 2 * d * self.hd * (self.n_heads + self.n_kv_heads),
+        }
+        return (v * d * (1 if self.tie_embeddings else 2) + d
+                + sum(per[k] + d for k in self.pattern()))
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     """One assigned input-shape cell."""
     name: str

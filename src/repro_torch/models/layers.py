@@ -746,6 +746,8 @@ class MoE(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
+        # the experts held: [first, first + held) of the router's, all here
+        self.first, self.held = 0, cfg.n_experts
         for name, d in moe_defs(cfg).items():
             if name != "shared":
                 self.register_parameter(name, _param(d, device, _pdt(cfg)))
@@ -815,36 +817,128 @@ class MoE(nn.Module):
         (``models.moe.route``: router, top-k, sort, gather), each expert's
         rows one group of a grouped product, the outputs put back in pair
         order and summed with their gates in float32 (``models.moe.
-        experts``), and the shared experts added.  Nothing here waits on
-        the host; ``models.moe.pairs`` counts the pairs computed."""
+        experts``), and the shared experts added.  A layer that holds a
+        share of the experts (``first``, ``held``) sorts the pairs of the
+        others last, where no group computes them, and they add nothing.
+        Nothing here waits on the host; ``models.moe.pairs`` counts the
+        pairs routed."""
         cfg = self.cfg
         dt = _dt(cfg)
         b, s, d = x.shape
         e, k = cfg.n_experts, cfg.experts_per_tok
+        first, held = self.first, self.held
         n = b * s
         tokens = x.reshape(n, d)
         with telemetry.span("models.moe.route"):
             probs, gate, idx = (t[0] for t in self.route(tokens[None]))
+            if held < e:
+                idx = torch.where((idx >= first) & (idx < first + held),
+                                  idx - first, held)
             experts, order = idx.reshape(-1).sort(stable=True)
             ends = torch.searchsorted(
-                experts, torch.arange(1, e + 1, device=x.device)
+                experts, torch.arange(1, held + 1, device=x.device)
             ).to(torch.int32)
             xs = tokens[order // k]
         telemetry.count("models.moe.pairs", n * k)
         with telemetry.span("models.moe.experts"):
             # row block i (rows ends[i-1]:ends[i]) times expert i's weight,
             # one grouped product each, the ends read on the device
-            h = (F.silu(torch._grouped_mm(xs, _cast(self.w_gate, dt),
-                                          offs=ends))
-                 * torch._grouped_mm(xs, _cast(self.w_up, dt), offs=ends))
-            ys = torch._grouped_mm(h, _cast(self.w_down, dt), offs=ends)
+            ys = self._experts(xs, ends)
+            if held < e:
+                # rows past the last group's end are no product's
+                ys.masked_fill_(experts[:, None] == held, 0)
             y = torch.empty_like(ys).index_copy_(0, order, ys)
             out = (y.view(n, k, d).float() * gate[..., None]).sum(1).to(dt)
         if cfg.n_shared_experts:
             out = out + self.shared(tokens[None])[0]
         counts = torch.diff(ends, prepend=ends.new_zeros(1))
-        aux = e * torch.sum(probs.mean(0) * counts.float() / (n * k))
+        aux = e * torch.sum(probs.mean(0)[first:first + held]
+                            * counts.float() / (n * k))
         return out.reshape(b, s, d), aux
+
+    def _experts(self, xs, ends):
+        """The SwiGLU experts over rows ``xs`` grouped by ``ends``."""
+        dt = _dt(self.cfg)
+        h = (F.silu(torch._grouped_mm(xs, _cast(self.w_gate, dt), offs=ends))
+             * torch._grouped_mm(xs, _cast(self.w_up, dt), offs=ends))
+        return torch._grouped_mm(h, _cast(self.w_down, dt), offs=ends)
+
+
+# ---------------------------------------------------------------------------
+# nemotron_h's MoE: sigmoid router with a choice bias, relu² experts
+# ---------------------------------------------------------------------------
+
+def relu2_mlp_defs(cfg: ModelConfig, d_ff: int):
+    d = cfg.d_model
+    return {"w_up": P((d, d_ff), ("embed", "mlp")),
+            "w_down": P((d_ff, d), ("mlp", "embed"))}
+
+
+class Relu2MLP(nn.Module):
+    """``down(relu(up x)²)``: ``nemotron_h``'s non-gated MLP."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda", d_ff: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        for name, d in relu2_mlp_defs(cfg, d_ff).items():
+            self.register_parameter(name, _param(d, device, _pdt(cfg)))
+
+    def forward(self, x):
+        dt = _dt(self.cfg)
+        h = torch.relu(torch.einsum("bsd,df->bsf", x, _cast(self.w_up, dt)))
+        return torch.einsum("bsf,fd->bsd", h.square(), _cast(self.w_down, dt))
+
+
+def sigmoid_moe_defs(cfg):
+    """A :class:`SigmoidMoE`'s parameters: the router over all
+    ``n_experts`` and its ``choice_bias`` (the published
+    ``e_score_correction_bias``), the ``held`` experts' ``w_up``/``w_down``
+    and the shared expert of ``shared_expert_width``."""
+    d, e, h, f = cfg.d_model, cfg.n_experts, cfg.held, cfg.d_expert
+    return {"router": P((d, e), ("embed", None)),
+            "choice_bias": P((e,), (None,), init="zeros"),
+            "w_up": P((h, d, f), ("experts", "embed", None)),
+            "w_down": P((h, f, d), ("experts", None, "embed")),
+            "shared": relu2_mlp_defs(cfg, cfg.shared_expert_width)}
+
+
+class SigmoidMoE(MoE):
+    """``nemotron_h``'s MoE (DeepSeek-V3's router), dropless: scores
+    ``sigmoid(h · router)`` in float32; the top-k of ``scores +
+    choice_bias`` chosen; their gates the chosen scores, renormalised,
+    times ``routed_scaling``; relu² experts and one relu² shared expert
+    added ungated.  It holds experts ``first_expert`` ..
+    ``first_expert + held − 1`` and routes over all ``n_experts``: the
+    pairs of the others contribute nothing (:meth:`MoE._dropless`)."""
+
+    def __init__(self, cfg, device="cuda"):
+        nn.Module.__init__(self)
+        self.cfg = cfg
+        self.first, self.held = cfg.first_expert, cfg.held
+        for name, d in sigmoid_moe_defs(cfg).items():
+            if name != "shared":
+                self.register_parameter(name, _param(d, device, _pdt(cfg)))
+        self.shared = Relu2MLP(cfg, device, cfg.shared_expert_width)
+
+    def route(self, tokens):
+        """Scores (G, S, E), gates and experts (G, S, k) of ``tokens``."""
+        scores = torch.sigmoid(torch.einsum("gtd,de->gte", tokens.float(),
+                                            self.router.float()))
+        idx = torch.topk(scores + self.choice_bias.float(),
+                         self.cfg.experts_per_tok)[1]
+        gate = scores.gather(-1, idx)
+        gate = gate / (gate.sum(-1, keepdim=True) + 1e-20)
+        return scores, gate * self.cfg.routed_scaling, idx
+
+    def forward(self, x):
+        return self._dropless(x)
+
+    def _experts(self, xs, ends):
+        dt = _dt(self.cfg)
+        h = torch.relu(torch._grouped_mm(xs, _cast(self.w_up, dt),
+                                         offs=ends))
+        return torch._grouped_mm(h.square(), _cast(self.w_down, dt),
+                                 offs=ends)
 
 
 # ---------------------------------------------------------------------------
@@ -865,50 +959,16 @@ def ssm_defs(cfg: ModelConfig):
 
 
 def _ssd_chunked(xh, a, b, c, chunk: int, f32: bool = True):
-    """SSD scan.  xh: (B,S,nh,hd) inputs ·dt;  a: (B,S,nh) per-step decay in
-    (0,1);  b,c: (B,S,N).  Returns (B,S,nh,hd) contraction with state dim N.
-
-    Quadratic-within-chunk + carried state across chunks (Mamba2 SSD).
-    ``f32=False`` rounds the big einsum operands to bf16 and accumulates
-    in float32 (the reference's ``preferred_element_type``: a product of
-    bf16 values is exact in float32, so the operands are rounded and then
-    contracted in float32); decay and cumsum stay float32.  The
-    reference's ``lax.scan`` over chunks is a Python loop.
+    """SSD scan of the JAX-parity SSM mixer.  xh: (B,S,nh,hd) inputs ·dt;
+    a: (B,S,nh) per-step decay in (0,1);  b,c: (B,S,N), one group.
+    Returns (B,S,nh,hd): :func:`_ssd_scan` from a zero state.
+    ``f32=False`` rounds the products' operands to bf16 and contracts in
+    float32 (the reference's ``preferred_element_type``: a product of bf16
+    values is exact in float32); decay and cumsum stay float32.
     """
-    bs, s, nh, hd = xh.shape
-    n = b.shape[-1]
-    nc = s // chunk
-
-    def mm(t):
-        return t.float() if f32 else t.to(torch.bfloat16).float()
-
-    xh = xh.reshape(bs, nc, chunk, nh, hd)
-    a = a.reshape(bs, nc, chunk, nh)
-    b = b.reshape(bs, nc, chunk, n)
-    c = c.reshape(bs, nc, chunk, n)
-    la = torch.log(a + 1e-20)
-    cum = torch.cumsum(la, 2)                                   # (B,NC,Q,nh)
-    # intra-chunk: G[t,s] = exp(cum[t]-cum[s]) for s<=t
-    gd = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # (B,NC,Q,Q,nh)
-    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                 device=xh.device))
-    g = torch.where(mask[None, None, :, :, None], torch.exp(gd), 0.0)
-    cb = torch.einsum("bzqn,bzsn->bzqs", mm(c), mm(b))
-    y_intra = torch.einsum("bzqs,bzqsh,bzshd->bzqhd", mm(cb), mm(g), mm(xh))
-    # chunk summaries: state contribution of each chunk
-    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)           # (B,NC,Q,nh)
-    chunk_state = torch.einsum("bzsn,bzsh,bzshd->bzhdn", mm(b),
-                               mm(decay_to_end), mm(xh))
-    chunk_decay = torch.exp(cum[:, :, -1, :])                   # (B,NC,nh)
-    h = torch.zeros((bs, nh, hd, n), dtype=torch.float32, device=xh.device)
-    h_prev = []
-    for z in range(nc):
-        h_prev.append(h)
-        h = h * chunk_decay[:, z, :, None, None] + chunk_state[:, z]
-    h_prev = torch.stack(h_prev, 1)                             # (B,NC,nh,hd,N)
-    y_inter = torch.einsum("bzqn,bzqh,bzhdn->bzqhd", mm(c), mm(torch.exp(cum)),
-                           mm(h_prev))
-    return (y_intra + y_inter).reshape(bs, s, nh, hd)
+    mm = None if f32 else (lambda t: t.to(torch.bfloat16).float())
+    return _ssd_scan(xh.float(), torch.log(a + 1e-20), b[:, :, None],
+                     c[:, :, None], chunk, mm=mm)[0]
 
 
 def _batch_sharded_only(t):
@@ -1012,3 +1072,210 @@ def ssm_cache_shape(cfg: ModelConfig, batch: int):
     di, st, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     return {"conv": (batch, 3, di + 2 * st),
             "state": (batch, nh, di // nh, st)}
+
+
+# ---------------------------------------------------------------------------
+# nemotron_h's Mamba-2 mixer: grouped B/C, conv bias, a gated norm over
+# groups, and a cached prefill that leaves the state decoding would leave
+# ---------------------------------------------------------------------------
+
+def mamba2_defs(cfg: ModelConfig):
+    """The input projection ``[z | xBC | dt]`` (widths ``d_inner``, the conv
+    channels, ``ssm_heads``), the depthwise conv over the ``d_inner +
+    2 · ssm_groups · ssm_state`` channels of xBC (and its bias), per head
+    ``a_log``, ``d_skip`` and ``dt_bias``, the gated norm's scale and the
+    output projection."""
+    d, di, nh = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads
+    ch = mamba2_conv_channels(cfg)
+    defs = {
+        "w_in": P((d, di + ch + nh), ("embed", "inner")),
+        "conv_w": P((4, ch), (None, "inner"), scale=0.5),
+        "a_log": P((nh,), (None,), init="ones"),
+        "d_skip": P((nh,), (None,), init="ones"),
+        "dt_bias": P((nh,), (None,), init="zeros"),
+        "norm": rmsnorm_defs(di),
+        "w_out": P((di, d), ("inner", "embed")),
+    }
+    if cfg.conv_bias:
+        defs["conv_b"] = P((ch,), ("inner",), init="zeros")
+    return defs
+
+
+def mamba2_conv_channels(cfg: ModelConfig) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+
+
+def mamba2_cache_shape(cfg: ModelConfig, batch: int):
+    """One layer's conv window (the last 3 xBC inputs) and state."""
+    return {"conv": (batch, 3, mamba2_conv_channels(cfg)),
+            "state": (batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                      cfg.ssm_state)}
+
+
+def _segsum(x):
+    """``out[..., i, j] = Σ_{j < r ≤ i} x[..., r]`` for j ≤ i, −inf above
+    the diagonal, summed without differences of long cumulative sums."""
+    t = x.shape[-1]
+    ones = torch.ones(t, t, dtype=torch.bool, device=x.device)
+    seg = x[..., :, None].expand(*x.shape, t)             # [r, j] = x_r
+    seg = seg.masked_fill(~torch.tril(ones, -1), 0).cumsum(-2)
+    return seg.masked_fill(~torch.tril(ones), -math.inf)
+
+
+def _ssd_scan(xdt, la, b, c, chunk: int, h0=None, mm=None):
+    """The grouped SSD (Mamba-2) of one or more sequences, in chunks:
+    ``y_t = Σ_{s ≤ t} (c_t · b_s) exp(Σ_{s < r ≤ t} la_r) xdt_s
+    + exp(Σ_{r ≤ t} la_r) c_t · h0``, and the state after the last
+    position, ``h = Σ_s exp(Σ_{s < r} la_r) xdt_s ⊗ b_s + exp(Σ la) h0``.
+
+    xdt: (B,S,nh,hd) float32, the inputs times dt; la: (B,S,nh) the log
+    decays A·dt (≤ 0); b, c: (B,S,G,N), head h reading group
+    ``h // (nh / G)``; h0: (B,nh,hd,N) or None (zeros).  Any length: a
+    ragged last chunk is padded with xdt = 0 and la = 0, which add nothing
+    and decay nothing, so the padding is exact.  Within a chunk the
+    quadratic form; across chunks each chunk's state is carried by the
+    decay matrix of the chunks between (:func:`_segsum`), with no loop.
+    ``mm``, where given, rounds the operands of every product (the
+    JAX-parity mixer's bf16 rounding, :func:`_ssd_chunked`).
+    Returns ``(y (B,S,nh,hd), h (B,nh,hd,N))``, float32."""
+    r = mm or (lambda t: t)
+    bs, s, nh, hd = xdt.shape
+    g, n = b.shape[2:]
+    p = nh // g
+    pad = -s % chunk
+    if pad:
+        xdt, la, b, c = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                         for t in (xdt, la, b, c))
+    nc = (s + pad) // chunk
+    x = xdt.reshape(bs, nc, chunk, g, p, hd)
+    b = b.reshape(bs, nc, chunk, g, n)
+    c = c.reshape(bs, nc, chunk, g, n)
+    cum = la.reshape(bs, nc, chunk, g, p).cumsum(2)       # (B,Z,Q,G,P)
+    # within a chunk: the decay from position s to t ≥ s
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=x.device))[:, :, None, None]
+    seg = cum[:, :, :, None] - cum[:, :, None]            # (B,Z,Q,Q,G,P)
+    decay = torch.exp(seg.masked_fill(~causal, -math.inf))
+    del seg
+    cb = torch.einsum("bzqgn,bzsgn->bzqsg", r(c), r(b))
+    y = torch.einsum("bzqsgp,bzsgpd->bzqgpd", r(cb)[..., None] * r(decay),
+                     r(x))
+    del decay, cb
+    # each chunk's part of the state at its end, then the state entering
+    # every chunk (and the last): h0 and the chunks before, decayed
+    to_end = torch.exp(cum[:, :, -1:] - cum)
+    states = torch.einsum("bzsgn,bzsgpd->bzgpdn", r(b),
+                          r(x) * r(to_end)[..., None])
+    if h0 is None:
+        h0 = states.new_zeros(bs, g, p, hd, n)
+    states = torch.cat([h0.reshape(bs, 1, g, p, hd, n), states], 1)
+    last = F.pad(cum[:, :, -1].permute(0, 2, 3, 1), (1, 0))  # (B,G,P,Z+1)
+    entering = torch.einsum("bgpzw,bwgpdn->bzgpdn",
+                            torch.exp(_segsum(last)), states)
+    y = y + (torch.einsum("bzqgn,bzgpdn->bzqgpd", r(c), r(entering[:, :-1]))
+             * r(torch.exp(cum))[..., None])
+    return (y.reshape(bs, nc * chunk, nh, hd)[:, :s],
+            entering[:, -1].reshape(bs, nh, hd, n))
+
+
+def _gated_group_norm(y, z, scale, groups: int, eps: float, dt):
+    """``nemotron_h``'s gated RMSNorm: ``y · silu(z)`` normalised over each
+    of ``groups`` equal groups of channels in float32, times ``scale``."""
+    v = (y.float() * F.silu(z.float())).unflatten(-1, (groups, -1))
+    v = v * torch.rsqrt(v.square().mean(-1, keepdim=True) + eps)
+    return v.flatten(-2).to(dt) * _cast(scale, dt)
+
+
+class Mamba2Mixer(nn.Module):
+    """``nemotron_h``'s Mamba-2 mixer (the reference has none; its
+    :class:`SSMMixer` is the JAX-parity one).  ``[z | xBC | dt] = x ·
+    w_in``; ``xBC = silu(causal depthwise conv4(xBC) + conv_b)``, split into
+    x (``d_inner``), B and C (``ssm_groups × ssm_state`` each); ``dt =
+    softplus(dt + dt_bias)``, ``A = −exp(a_log)``; the SSD (head h reads
+    group h // (heads / groups)) plus ``d_skip · x``; then ``w_out`` of the
+    gated norm of ``y · silu(z)`` over groups of ``d_inner / ssm_groups``.
+
+    With a cache (conv window (B,3,ch), float32 state (B,nh,hd,N)) both
+    are written in place: a one-token step runs the recurrence
+    (``models.ssm.step``); any other forward the chunked scan
+    (:func:`_ssd_scan`, ``models.ssm.scan``) from the cached state and
+    window, one sequence at a time, leaving the state and window that
+    token-by-token decoding would leave.  A cached forward adds the bytes
+    of state and window it reads and writes to ``models.ssm.state_bytes``.
+    """
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        for name, d in mamba2_defs(cfg).items():
+            if name != "norm":
+                self.register_parameter(name, _param(d, device, _pdt(cfg)))
+        self.norm = RMSNorm(cfg.d_inner, cfg.norm_eps, device, _pdt(cfg))
+
+    def forward(self, x, cache=None):
+        """Returns ``(y, None)``; ``cache`` = dict(conv, state), one
+        layer's, updated in place."""
+        cfg = self.cfg
+        dt_ = _dt(cfg)
+        b_, s, _ = x.shape
+        di, nh, hd = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_head_dim
+        g, n = cfg.ssm_groups, cfg.ssm_state
+        gn = g * n
+        z, xbc, dt_raw = torch.einsum(
+            "bsd,de->bse", x, _cast(self.w_in, dt_)).split(
+                [di, di + 2 * gn, nh], -1)
+        window = (xbc.new_zeros(b_, 3, xbc.shape[-1]) if cache is None
+                  else cache["conv"].to(dt_))
+        xpad = torch.cat([window, xbc], 1)
+        w = _cast(self.conv_w, dt_)
+        conv = sum(xpad[:, i:i + s] * w[i] for i in range(4))
+        if cfg.conv_bias:
+            conv = conv + _cast(self.conv_b, dt_)
+        xs, bm, cm = F.silu(conv).split([di, gn, gn], -1)
+        dtv = _softplus(dt_raw.float() + self.dt_bias.float())  # (B,S,nh)
+        la = -torch.exp(self.a_log.float()) * dtv
+        xh = xs.reshape(b_, s, nh, hd).float()
+        bm = bm.reshape(b_, s, g, n).float()
+        cm = cm.reshape(b_, s, g, n).float()
+        if cache is not None and s == 1:
+            with telemetry.span("models.ssm.step"):
+                y = self._step(cache["state"], xh[:, 0], dtv[:, 0], la[:, 0],
+                               bm[:, 0], cm[:, 0])[:, None]
+        else:
+            with telemetry.span("models.ssm.scan"):
+                y = self._scan(xh, dtv, la, bm, cm, cache)
+        y = y + self.d_skip.float()[:, None] * xh
+        y = _gated_group_norm(y.reshape(b_, s, di), z, self.norm.scale, g,
+                              cfg.norm_eps, dt_)
+        out = torch.einsum("bse,ed->bsd", y, _cast(self.w_out, dt_))
+        if cache is not None:
+            cache["conv"].copy_(xpad[:, -3:])
+            telemetry.count("models.ssm.state_bytes", 2 * sum(
+                cache[k].numel() * cache[k].element_size()
+                for k in ("conv", "state")))
+        return out, None
+
+    def _step(self, state, x, dtv, la, bm, cm):
+        """One token: ``h ← exp(la) h + (x · dt) ⊗ B``, ``y = h · C``; the
+        state written in place."""
+        rep = self.cfg.n_ssm_heads // self.cfg.ssm_groups
+        bh, chh = bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
+        h = (state * torch.exp(la)[..., None, None]
+             + (x * dtv[..., None])[..., None] * bh[:, :, None, :])
+        state.copy_(h)
+        return torch.einsum("bhdn,bhn->bhd", h, chh)
+
+    def _scan(self, xh, dtv, la, bm, cm, cache):
+        """The chunked scan, one sequence at a time (which bounds its
+        float32 chunk × chunk × heads temporaries), from and into the
+        cached state where there is a cache."""
+        ys = []
+        for i in range(xh.shape[0]):
+            one = slice(i, i + 1)
+            y, h = _ssd_scan(xh[one] * dtv[one, ..., None], la[one], bm[one],
+                             cm[one], self.cfg.ssm_chunk,
+                             None if cache is None else cache["state"][one])
+            if cache is not None:
+                cache["state"][one].copy_(h)
+            ys.append(y)
+        return torch.cat(ys)

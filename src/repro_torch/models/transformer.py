@@ -1,13 +1,16 @@
 """Model composition: decoder LMs (dense, vlm), MoE LMs (with MLA for
-DeepSeek-V2), enc-dec (whisper), hybrid (zamba2) and pure-SSM (mamba2)
-stacks, with per-family decode caches.
+DeepSeek-V2), enc-dec (whisper), hybrid (zamba2), pure-SSM (mamba2) and
+``nemotron_h`` hybrid MoE (Mamba-2, MoE and attention blocks in one
+stack) stacks, with per-family decode caches.
 
 Entry points (the reference's, :mod:`repro.models.transformer`)
 ----------------------------------------------------------------
 ``model_defs(cfg)``                       ParamDef tree (stacked ``blocks``,
                                           ``ssm_blocks``, ``enc_blocks``;
                                           ``dense_blocks`` for leading
-                                          dense layers of a MoE model)
+                                          dense layers of a MoE model;
+                                          ``attn_blocks``/``moe_blocks``
+                                          of a hybrid MoE)
 ``Transformer(cfg, device)``              the module; ``load_params(tree)``
                                           fills it from such a tree,
                                           ``draw_params(generator)`` draws
@@ -28,13 +31,14 @@ Under autograd without caches, ``cfg.remat != "none"`` ("full" and
 reference applies ``jax.checkpoint``: an attention block, an SSM block,
 and the hybrid's SSM layer together with the shared block after it.
 
-On the card, a cached one-token forward of an attention model is one
-CUDA graph replay (:class:`DecodeGraph`): the model holds one graph, for
-one set of decode caches, which records the eager forward on the first
-such step over them and is replayed with the position filled in on the
-device.  Where it engages is :meth:`Transformer.in_graph`; every other
-forward is eager.  Without grad (every cached forward) the weights are
-the parameters' compute-dtype copies, cast once (``layers._cast``).
+On the card, a cached one-token forward of an attention model or a
+hybrid MoE is one CUDA graph replay (:class:`DecodeGraph`): the model
+holds one graph, for one set of decode caches, which records the eager
+forward on the first such step over them and is replayed with the
+position filled in on the device.  Where it engages is
+:meth:`Transformer.in_graph`; every other forward is eager.  Without grad
+(every cached forward) the weights are the parameters' compute-dtype
+copies, cast once (``layers._cast``).
 """
 from __future__ import annotations
 
@@ -49,20 +53,29 @@ from torch.utils.checkpoint import checkpoint
 from .. import telemetry
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .layers import (MLP, Attention, MLAttention, MoE, ParamDef, PumMLP,
-                     RMSNorm, SSMMixer, _cast, _check_room, _dt, _flash,
-                     _kept_copy, _param, _pdt, _sdpa, apply_rope,
-                     attention_defs, mla_defs, mlp_defs, moe_defs,
-                     rmsnorm_defs, ssm_cache_shape, ssm_defs)
+from .layers import (MLP, Attention, Mamba2Mixer, MLAttention, MoE,
+                     ParamDef, PumMLP, RMSNorm, SigmoidMoE, SSMMixer, _cast,
+                     _check_room, _dt, _flash, _kept_copy, _param, _pdt,
+                     _sdpa, apply_rope, attention_defs, mamba2_cache_shape,
+                     mamba2_defs, mla_defs, mlp_defs, moe_defs, rmsnorm_defs,
+                     sigmoid_moe_defs, ssm_cache_shape, ssm_defs)
 from .params import stack_defs, tree_leaves
 
 P = ParamDef
 
 ATTN_FAMILIES = ("dense", "moe", "audio", "vlm")
+# the families whose one-token step a DecodeGraph records
+GRAPH_FAMILIES = ATTN_FAMILIES + ("hybrid_moe",)
 # parameter subtrees stacked over layers in the reference's tree (and the
 # port's ``dense_blocks``: a MoE model's leading dense layers, named
-# ``blocks.<i>`` in the module before the MoE layers)
-STACKED = ("blocks", "ssm_blocks", "enc_blocks", "dense_blocks")
+# ``blocks.<i>`` in the module before the MoE layers; and a hybrid MoE's
+# blocks of each kind)
+STACKED = ("blocks", "ssm_blocks", "enc_blocks", "dense_blocks",
+           "attn_blocks", "moe_blocks")
+# a hybrid MoE's letters: each one's stacked subtree, mixer and its defs
+LETTERS = {"M": ("ssm_blocks", Mamba2Mixer, mamba2_defs),
+           "E": ("moe_blocks", SigmoidMoE, sigmoid_moe_defs),
+           "*": ("attn_blocks", Attention, attention_defs)}
 SHARED_EVERY = 6       # hybrid: the shared attention block after every 6th
 
 
@@ -168,15 +181,23 @@ class AttnBlock(nn.Module):
         return x + y, aux, new_cache
 
 
-class SSMBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+class MixerBlock(nn.Module):
+    """``x + mixer(RMSNorm(x))``: a pre-norm block of one mixer (``ln``,
+    ``mixer``), whose ``(y, extra)`` it returns as ``(x + y, extra)``."""
+
+    def __init__(self, cfg: ModelConfig, mixer: nn.Module, device="cuda"):
         super().__init__()
         self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, device, _pdt(cfg))
-        self.mixer = SSMMixer(cfg, device)
+        self.mixer = mixer
 
-    def forward(self, x, cache=None):
-        y, new_cache = self.mixer(self.ln(x), cache)
-        return x + y, new_cache
+    def forward(self, x, *args):
+        y, extra = self.mixer(self.ln(x), *args)
+        return x + y, extra
+
+
+class SSMBlock(MixerBlock):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__(cfg, SSMMixer(cfg, device), device)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +231,12 @@ def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
 def model_defs(cfg: ModelConfig):
     d, v = cfg.d_model, cfg.vocab
     defs: dict = {"embed": P((v, d), ("vocab", "embed"), scale=0.01)}
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid_moe":
+        for letter, (name, _, mixer_defs) in LETTERS.items():
+            defs[name] = stack_defs(
+                {"ln": rmsnorm_defs(d), "mixer": mixer_defs(cfg)},
+                cfg.block_pattern.count(letter))
+    elif cfg.family == "hybrid":
         defs["ssm_blocks"] = stack_defs(ssm_block_defs(cfg), n_ssm_layers(cfg))
         defs["shared_attn"] = attn_block_defs(cfg)          # weight-tied
     elif cfg.family == "ssm":
@@ -258,8 +284,11 @@ class Transformer(nn.Module):
     ``ssm_blocks.3.mixer.a_log``, ``enc_blocks.1.ffn.w_down``,
     ``final_norm.scale``, ``lm_head`` unless the embeddings are tied); the
     hybrid's weight-tied ``shared_attn`` is one block, called after every
-    sixth SSM layer; a MoE model's ``cfg.first_k_dense`` leading blocks
-    have the dense SwiGLU of ``d_ff`` (``blocks.0.ffn.w_gate``, ...).
+    sixth SSM layer; a hybrid MoE's blocks of each letter are numbered
+    apart (``ssm_blocks.<i>``, ``moe_blocks.<i>``, ``attn_blocks.<i>``,
+    each ``ln`` and ``mixer``) and run in ``cfg.block_pattern``'s order;
+    a MoE model's ``cfg.first_k_dense`` leading blocks have the dense
+    SwiGLU of ``d_ff`` (``blocks.0.ffn.w_gate``, ...).
     Parameters are held in ``cfg.param_dtype``.  Built uninitialised on
     ``device`` (``"cuda"`` unless the caller asks for the CPU); fill it
     with :meth:`load_params` or :meth:`draw_params`.
@@ -282,7 +311,12 @@ class Transformer(nn.Module):
         defs = model_defs(cfg)
         pdt = _pdt(cfg)
         self.embed = _param(defs["embed"], dev, pdt)
-        if cfg.family in ("ssm", "hybrid"):
+        if cfg.family == "hybrid_moe":
+            for letter, (name, mixer, _) in LETTERS.items():
+                setattr(self, name, nn.ModuleList(
+                    MixerBlock(cfg, mixer(cfg, dev), dev)
+                    for _ in range(cfg.block_pattern.count(letter))))
+        elif cfg.family in ("ssm", "hybrid"):
             self.ssm_blocks = nn.ModuleList(SSMBlock(cfg, dev)
                                             for _ in range(n_ssm_layers(cfg)))
             if cfg.family == "hybrid":
@@ -381,14 +415,14 @@ class Transformer(nn.Module):
 
     def in_graph(self, batch: dict, caches) -> bool:
         """Whether a forward of ``batch`` on ``caches`` (without grad, for
-        logits) is a CUDA graph's step: an attention model (not enc-dec,
-        no M-RoPE, no int8 cache, no DTensor parameters) on the card, one
-        token a sequence of the caches' batch and nothing else in the
-        batch, and for GQA a cache that one query attends over on the
-        plain path (:func:`~.layers._flash`; the flash path keeps a host
-        offset)."""
+        logits) is a CUDA graph's step: an attention model or a hybrid MoE
+        (not enc-dec, no M-RoPE, no int8 cache, no DTensor parameters) on
+        the card, one token a sequence of the caches' batch and nothing
+        else in the batch, and for GQA a cache that one query attends over
+        on the plain path (:func:`~.layers._flash`; the flash path keeps a
+        host offset)."""
         cfg = self.cfg
-        if (caches is None or cfg.family not in ATTN_FAMILIES
+        if (caches is None or cfg.family not in GRAPH_FAMILIES
                 or cfg.enc_dec or cfg.rope == "mrope"
                 or cfg.kv_cache_dtype == "int8" or len(batch) != 1):
             return False
@@ -414,8 +448,9 @@ class Transformer(nn.Module):
                 self._forward, caches, tokens, pos, self.parameters())
         else:
             logits, aux = self._graph.replay(tokens, pos)
-        return logits, aux, {"layers": dict(layers, pos=layers["pos"] + 1),
-                             "pos": caches["pos"] + 1}
+        return logits, aux, dict(
+            {k: dict(c, pos=c["pos"] + 1) for k, c in caches.items()
+             if k in DecodeGraph.GROUPS}, pos=caches["pos"] + 1)
 
     def _forward(self, batch, caches, return_hidden):
         cfg = self.cfg
@@ -461,6 +496,13 @@ class Transformer(nn.Module):
             x, hc = self._hybrid_stack(x, positions, caches, remat)
             if caches is not None:
                 new_caches.update(hc)
+        elif cfg.family == "hybrid_moe":
+            x, aux = self._hybrid_moe_stack(x, positions, caches, start,
+                                            remat)
+            if caches is not None:
+                for name in ("layers", "ssm"):
+                    new_caches[name] = dict(caches[name],
+                                            pos=caches[name]["pos"] + s)
         else:
             raise ValueError(cfg.family)
         x = self.final_norm(x)
@@ -530,6 +572,32 @@ class Transformer(nn.Module):
             return x, None
         return x, {"ssm": ssm, "shared_attn": attn_caches}
 
+    def _hybrid_moe_stack(self, x, positions, caches, start,
+                          remat: bool = False):
+        """``nemotron_h``: the blocks in ``cfg.block_pattern``'s order, the
+        i-th of a letter from its stack; with caches, the i-th ``*`` block
+        attends over KV cache i (``layers``) at ``start`` and the i-th
+        ``M`` block keeps SSM cache i (``ssm``).  Returns ``(x, aux)``."""
+        kv, ssm = (None, None) if caches is None else (caches["layers"],
+                                                         caches["ssm"])
+        seen = dict.fromkeys(LETTERS, 0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for letter in self.cfg.block_pattern:
+            i = seen[letter]
+            seen[letter] += 1
+            block = getattr(self, LETTERS[letter][0])[i]
+            if letter == "M":
+                x, _ = _call(remat, block, x, _layer_cache(ssm, i, start))
+            elif letter == "*":
+                with telemetry.span("models.attn"):
+                    x, _ = _call(remat, block, x, positions,
+                                 _layer_cache(kv, i, start))
+            else:
+                with telemetry.span("models.ffn"):
+                    x, a = _call(remat, block, x)
+                aux = aux + a
+        return x, aux
+
     def _encode(self, batch, caches):
         """Whisper encoder over precomputed frame embeddings (the conv
         frontend is a stub: ``encoder_frames`` are frame embeddings).  With
@@ -580,7 +648,12 @@ class DecodeGraph:
     (span ``models.graph.replay``; ``models.graph.replays``), adds to the
     registry the counters the recorded step added (``counts``), and
     returns copies of the outputs, so a later replay overwrites nothing a
-    caller holds."""
+    caller holds.  It writes the cache tensors of ``layers`` (KV or
+    latent) and, for a hybrid MoE, ``ssm`` (state and conv window, in
+    place)."""
+
+    GROUPS = ("layers", "ssm")
+    ssm: dict = {}           # the SSM caches it writes (none: attention)
 
     @classmethod
     def capture(cls, forward, caches: dict, tokens: torch.Tensor, pos: int,
@@ -596,7 +669,8 @@ class DecodeGraph:
         (logits, aux))`` of that first step."""
         g = cls()
         dev = tokens.device
-        g.layers = {k: t for k, t in caches["layers"].items() if k != "pos"}
+        g.layers, g.ssm = ({k: t for k, t in caches.get(group, {}).items()
+                            if k != "pos"} for group in cls.GROUPS)
         g.tokens = tokens.clone()
         g.pos = torch.full((1,), pos, dtype=torch.long, device=dev)
         g.graph = torch.cuda.CUDAGraph()
@@ -634,8 +708,10 @@ class DecodeGraph:
 
     def serves(self, caches) -> bool:
         """Whether ``caches`` are the caches this graph writes."""
-        layers = (caches or {}).get("layers", {})
-        return all(layers.get(k) is t for k, t in self.layers.items())
+        caches = caches or {}
+        return all(caches.get(group, {}).get(k) is t
+                   for group, held in zip(self.GROUPS, (self.layers, self.ssm))
+                   for k, t in held.items())
 
     def replay(self, tokens: torch.Tensor, pos: int):
         for w, c in self.weights:
@@ -733,9 +809,19 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
       ``k_rope``; enc-dec adds ``encoder_out`` and the cross ``xk``/``xv``;
     * ssm: ``layers`` of ``conv`` and a float32 ``state``;
     * hybrid: ``ssm`` (as ssm's ``layers``) and ``shared_attn`` ``k``/``v``
-      per invocation of the shared block (no ``pos`` of their own)."""
+      per invocation of the shared block (no ``pos`` of their own);
+    * hybrid MoE: ``layers`` of ``k``/``v`` for its attention blocks and
+      ``ssm`` of ``conv`` and a float32 ``state`` for its Mamba-2 blocks."""
     out: dict = {"pos": ((), torch.int32)}
-    if cfg.family in ATTN_FAMILIES:
+    if cfg.family == "hybrid_moe":
+        n, m = n_attn_layers(cfg), n_ssm_layers(cfg)
+        kv = ((n, batch, max_seq, cfg.n_kv_heads, cfg.hd), dtype)
+        out["layers"] = {"k": kv, "v": kv, "pos": ((n,), torch.int32)}
+        shapes = mamba2_cache_shape(cfg, batch)
+        out["ssm"] = {"conv": ((m,) + shapes["conv"], dtype),
+                      "state": ((m,) + shapes["state"], torch.float32),
+                      "pos": ((m,), torch.int32)}
+    elif cfg.family in ATTN_FAMILIES:
         n = n_attn_layers(cfg)
         if cfg.mla:
             layers = {"c": ((n, batch, max_seq, cfg.kv_lora_rank), dtype),
