@@ -140,7 +140,12 @@ Phases, each fatal on failure:
    FSM at multiplication/8b and division/32b; the transposition kernels at
    1, 8 and 32 planes, with their inputs rotating past the L2 and with one
    input (``kernel_warm_ms``), beside the profiler time of a PyTorch copy
-   of the same element vector (``copy_ms``, a yardstick only).
+   of the same element vector (``copy_ms``, a yardstick only); the
+   decode-attention kernel of the models layer at both decode cells'
+   shapes, checked against its plain version in float32 (and that check
+   shown to fail a softmax scale 10 % off and one dropped partial), beside
+   its bound (the written K/V bytes), the plain version in bf16 and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls).
 
 ``--ab-old [KERNEL=]OLD.cu`` (optional, repeatable) also builds an earlier
 version of ``csrc/KERNEL.cu`` with the same C interface, copies it to
@@ -163,9 +168,10 @@ a git-ignored directory such as ``build/ab_old/``.
 
 Phases 4, 4b, 4c, 4d, 4e, 4f and 4i each set every kernel's launch counter
 to 0 before the path and fail if a kernel of that path did not launch
-(the LM paths count one in-DRAM-sampler ``greedy_decode``); phases 4g
-and 4h set them to 0 and fail if any kernel launched (no SIMDRAM kernel lies
-on the training or the distributed path).  Every
+(the LM paths count one in-DRAM-sampler ``greedy_decode``, whose one-token
+steps launch the decode-attention kernel as well); phases 4g and 4h set
+them to 0 and fail if any kernel launched (no SIMDRAM kernel and no
+one-token attention lies on the training or the distributed path).  Every
 comparison of integers is exact; float logits are compared within the
 stated tolerances.  The last line is the
 ``{"ok": true, "device": ...}`` object; the line before it names the card
@@ -266,6 +272,18 @@ DIST_FAR = 1e-5
 DIST_EXCHANGES = {"packed": ("packed", False), "psum": ("psum", False),
                   "two_phase": ("packed", True)}
 PIPE_CASES = {"forward": (6, 8, 16, False), "grad": (4, 4, 8, True)}
+# phase 5: the decode-attention kernel at the decode cells' shapes, (label,
+# B, T, KV, g, hd), every position of the cache written (the longest step)
+DECODE_ATTN_SHAPES = (("olmoe-1b-7b.decode-host", 16, 3138, 16, 1, 128),
+                      ("nemotron-3-nano-30b-a3b.decode-agent-hybrid", 8,
+                       14433, 2, 16, 128))
+# kernels by the paths that must launch them: the applications, and the
+# LM serving paths (4e, 4f, 4i), whose bf16 one-token steps attend there
+SIMDRAM_KERNELS = ("uprog_execute", "bitplane_to_planes",
+                   "bitplane_from_planes", "bitserial_matmul")
+LM_KERNELS = ("uprog_execute", "bitplane_to_planes", "bitplane_from_planes",
+              "decode_attention")
+DECODE_ATTN_TOL = 2.0 ** -7     # × max|want|, against float32 math (the tests')
 # kernel → largest |kernel − plain version| seen in phases 2, 3 and 2b
 MAX_ABS_ERR: dict[str, int] = {}
 
@@ -1312,9 +1330,7 @@ def hybrid_encdec_path(device, wrappers: dict, card: str) -> dict:
                   f"CUDA events) [{card}]")
         print_lm_serve("4i", run, cfg)
         launches[arch] = run["launches"]
-        idle = [name for name in ("uprog_execute", "bitplane_to_planes",
-                                  "bitplane_from_planes")
-                if launches[arch][name] == 0]
+        idle = [name for name in LM_KERNELS if launches[arch][name] == 0]
         _check(not idle, f"kernels not launched serving {arch}: {idle}")
         model, prompt, extra = run["model"], run["prompt"], run["extra"]
         t1 = time.perf_counter()
@@ -2341,6 +2357,97 @@ def measure_bitserial(device, launches: int, popc_per_s: float) -> list:
     return rows_out
 
 
+def measure_decode_attention(device) -> list:
+    """The decode-attention kernel at both decode cells' shapes, the whole
+    cache written: checked against its plain version on float32 values
+    (within 2^-7 × max|want|, twice the output's bf16 rounding), and that
+    limit shown to fail two planted faults (a softmax scale 10 % off: the
+    kernel on 1.1 × q; one warp's partial dropped: the plain version
+    without its keys); timed by events and the profiler beside its bound
+    (the written K/V bytes over 3.35 TB/s), the plain version in bf16 and,
+    as a yardstick the port never calls, ``scaled_dot_product_attention``
+    over the same cache viewed (B, KV, T, hd).  The rows' ``launches``
+    are phase 4e's, filled in by ``main``.  Runs alone: ``import
+    chip_smoke`` with ``src`` on ``sys.path``, then
+    ``measure_decode_attention("cuda")``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain,
+                                                      plan)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def want32(q, k, v, n):
+        return decode_attention_plain(q.float(), k.float(), v.float(), True,
+                                      n - 1)
+
+    def err(got, want) -> float:
+        return float((got.float() - want).abs().max())
+
+    rows_out = []
+    for label, b, t, kv, g, hd in DECODE_ATTN_SHAPES:
+        gen = torch.Generator(device).manual_seed(SEED)
+        q, k, v = (torch.randn(shape, generator=gen, device=device)
+                   .to(torch.bfloat16)
+                   for shape in ((b, 1, kv * g, hd), (b, t, kv, hd),
+                                 (b, t, kv, hd)))
+        got = decode_attention(q, k, v, True, t - 1)
+        want = want32(q, k, v, t)
+        limit = DECODE_ATTN_TOL * float(want.abs().max())
+        e = err(got, want)
+        _check(e <= limit, f"decode_attention {label}: max |diff| {e:.3e} "
+               f"against float32 math (limit {limit:.3e})")
+        p = plan(b, kv, g, t, hd, sms)
+        share = -(-t // p.n_parts)
+        lo = p.n_parts // 2 * share
+        keep = torch.cat([torch.arange(lo), torch.arange(lo + share, t)])
+        keep = keep.to(device)
+        faults = {
+            "scale 1.1": err(decode_attention(
+                (q.float() * 1.1).to(q.dtype), k, v, True, t - 1), want),
+            f"partial {p.n_parts // 2} of {p.n_parts} dropped": err(
+                want32(q, k[:, keep], v[:, keep], len(keep)), want)}
+        caught = {name: f / limit for name, f in faults.items()}
+        _check(min(caught.values()) > 2, f"decode_attention {label}: the "
+               f"check's limit does not fail a planted fault: {caught}")
+        del want, keep
+        # two caches of ~0.4 GB each (over the 50 MB L2): reads are cold
+        inputs = [(q, k, v, True, t - 1),
+                  (q, k.clone(), v.clone(), True, t - 1)]
+        # the whole cache written: the causal step sees every key
+        lib_inputs = [(q.transpose(1, 2), kk.transpose(1, 2),
+                       vv.transpose(1, 2)) for _, kk, vv, _, _ in inputs]
+        library = lambda qq, kk, vv: F.scaled_dot_product_attention(   # noqa
+            qq, kk, vv, enable_gqa=True)
+        nbytes = 2 * b * t * kv * hd * 2
+        rows_out.append({
+            "name": f"decode_attention/{label}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "none (the models layer's einsums over the cache)",
+            "max_abs_err": e, "limit": limit,
+            "faults_over_limit": caught,
+            "ms": cuda_ms(decode_attention, inputs, iters=50),
+            "plain_ms": cuda_ms(decode_attention_plain, inputs, iters=5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": cuda_ms(library, lib_inputs, iters=50),
+            "kernel_ms": profiled_ms(decode_attention, inputs,
+                                     "decode_attn"),
+            "shape": f"B={b} T={t} KV={kv} g={g} hd={hd}"})
+        print(f"phase 5: decode_attention at {label} ({rows_out[-1]['shape']}"
+              f"): max |diff| {e:.3e} against float32 math (limit "
+              f"{limit:.3e}; planted faults at "
+              f"{', '.join(f'{n} {c:.1f}' for n, c in caught.items())} x "
+              f"the limit), {rows_out[-1]['ms']:.4f} ms (events), "
+              f"{rows_out[-1]['kernel_ms']} ms (profiler: split + combine), "
+              f"bound {rows_out[-1]['bound_ms']:.4f} ms, plain "
+              f"{rows_out[-1]['plain_ms']:.4f} ms, library "
+              f"{rows_out[-1]['library_ms']:.4f} ms")
+        del inputs, lib_inputs, q, k, v, got
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def fsm_inputs(device, op: str, n_bits: int) -> tuple:
     """The trace of ``op`` at ``n_bits`` and ``uprog_execute`` argument
     tuples on 16 × 2,048-word row files (copies, so the files together
@@ -2604,15 +2711,38 @@ def parse_args(args: list) -> dict | None:
     return ab_old
 
 
+class CountedLaunches:
+    """A kernel's launch counter read from the port's telemetry counter
+    ``name``: a replay of a recorded CUDA graph adds the launches it
+    recorded there, which the wrapper's own ``launches`` (its calls from
+    Python) cannot see.  Set and read like a wrapper's ``launches``."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    @property
+    def launches(self) -> int:
+        from repro_torch import telemetry
+        return telemetry.counter(self.name)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from repro_torch import telemetry
+        telemetry.reset(self.name)
+        telemetry.count(self.name, n)
+
+
 def kernel_wrappers() -> dict:
     """The wrappers of the SIMDRAM kernels by name, each with its launch
-    counter."""
+    counter, and the models layer's decode-attention kernel
+    (``decode_attention``), counted by telemetry."""
     from repro_torch.kernels.bitplane_transpose import from_planes, to_planes
     from repro_torch.kernels.bitserial_matmul import bitserial_matmul
     from repro_torch.kernels.uprog_executor import uprog_execute
     return {"uprog_execute": uprog_execute, "bitplane_to_planes": to_planes,
             "bitplane_from_planes": from_planes,
-            "bitserial_matmul": bitserial_matmul}
+            "bitserial_matmul": bitserial_matmul,
+            "decode_attention": CountedLaunches("kernels.decode_attn")}
 
 
 def main() -> int:
@@ -2671,7 +2801,7 @@ def main() -> int:
         print(f"phase 4b: applications path on the {label!r} backend OK in "
               f"{res['seconds']:.2f} s; μProgram Memory {res['cache']}; "
               f"launches {counts}")
-        need = [name for name in wrappers
+        need = [name for name in SIMDRAM_KERNELS
                 if backend is None or name != "uprog_execute"]
         idle = [name for name in need if counts[name] == 0]
         _check(not idle, f"kernels not launched on the applications path "
@@ -2732,6 +2862,7 @@ def main() -> int:
     kernels = measure(device, launches, int_ops_per_s)
     kernels += measure_bitserial(
         device, app_launches["unrolled"]["bitserial_matmul"], popc_per_s)
+    kernels += measure_decode_attention(device)
 
     lm = lm_serving_path(device, wrappers)
     lm_launches, cfg = lm["launches"], lm["cfg"]
@@ -2752,7 +2883,7 @@ def main() -> int:
     print(f"phase 4e (e): XNOR-popcount on the pum gate operands "
           f"({LM_BATCH * LM_PROMPT} x {cfg.d_model}) x ({cfg.d_model} x "
           f"{cfg.d_ff}) == the einsum of their signs")
-    idle = [name for name in main_kernels if lm_launches[name] == 0]
+    idle = [name for name in LM_KERNELS if lm_launches[name] == 0]
     _check(not idle, f"kernels not launched on the LM serving path: {idle}")
     device_breakdown("LM serving, simdram sampler (one warm decode)",
                      lambda: lm_generate(lm["model"], cfg, lm["prompt"],
@@ -2785,7 +2916,7 @@ def main() -> int:
     for arch, (err, tol) in moe["reduced_err"].items():
         print(f"phase 4f (d): reduced {arch} on the card vs the CPU: max "
               f"|diff| {err:.4e} (limit {tol:.4e})")
-    idle = [name for name in main_kernels if moe_launches[name] == 0]
+    idle = [name for name in LM_KERNELS if moe_launches[name] == 0]
     _check(not idle, f"kernels not launched on the MoE serving path: {idle}")
     device_breakdown("MoE serving, simdram sampler (one warm decode)",
                      lambda: lm_generate(moe["model"], cfg, moe["prompt"],
@@ -2805,7 +2936,7 @@ def main() -> int:
     train_launches = {name: w.launches for name, w in wrappers.items()}
     print_training(train, train_launches, card)
     _check(not any(train_launches.values()),
-           f"a SIMDRAM kernel launched on the training path: {train_launches}")
+           f"a kernel launched on the training path: {train_launches}")
     device_breakdown(f"training step, full width [{card}]",
                      lambda: one_train_step(train))
     host_breakdown("training step, full width",
@@ -2822,7 +2953,7 @@ def main() -> int:
     dist_launches = {name: w.launches + distributed["rank_launches"][name]
                      for name, w in wrappers.items()}
     print_distributed(distributed, dist_launches, card)
-    _check(not any(dist_launches.values()), "a SIMDRAM kernel launched on "
+    _check(not any(dist_launches.values()), "a kernel launched on "
            f"the distributed path: {dist_launches}")
     del distributed
     torch.cuda.empty_cache()
@@ -2840,7 +2971,10 @@ def main() -> int:
         wrapper = row["name"].split("/")[0]
         row["launches_by_path"] = {path: counts.get(wrapper, 0)
                                    for path, counts in by_path.items()}
-        row["max_abs_err"] = MAX_ABS_ERR[wrapper]    # 4e's check (e) too
+        if wrapper == "decode_attention":    # its main path: 4e's decode
+            row["launches"] = lm_launches[wrapper]
+        else:
+            row["max_abs_err"] = MAX_ABS_ERR[wrapper]    # 4e's check (e) too
     if ab_old:
         ab = {kernel: AB_RUNS[kernel](device, build_old(src))
               for kernel, src in ab_old.items()}

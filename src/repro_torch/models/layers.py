@@ -30,7 +30,10 @@ Conventions (the reference's, :mod:`repro.models.layers`)
 
 None of these is a Pallas kernel in the reference: they are ``jnp``
 einsums and blockwise ``lax.scan``s (flash attention, the SSD scan), and
-stay plain ``torch`` here, the scans as Python loops.
+stay plain ``torch`` here, the scans as Python loops; only one-token GQA
+attention on the card runs a kernel of the port's own
+(:mod:`..kernels.decode_attention`), which reads the cache in place where
+the einsums copied it.
 """
 from __future__ import annotations
 
@@ -45,6 +48,8 @@ from torch.multiprocessing.reductions import StorageWeakRef
 from .. import telemetry
 from ..configs.base import ModelConfig
 from ..distributed.sharding import routing_placements
+from ..kernels.decode_attention import DTYPE as DECODE_ATTN_DTYPE
+from ..kernels.decode_attention import decode_attention
 from .params import ParamDef
 
 P = ParamDef
@@ -406,10 +411,20 @@ def _flash(s: int, t: int) -> bool:
 
 
 def _sdpa(q, k, v, causal: bool, q_offset=0):
-    """GQA attention, uncached or over a cache: plain scores
-    (:func:`_sdpa_naive`) or the online-softmax path (:func:`_flash_attn`,
-    whose ``q_offset`` is a host int) as :func:`_flash` decides."""
-    fn = _flash_attn if _flash(q.shape[1], k.shape[1]) else _sdpa_naive
+    """GQA attention, uncached or over a cache.  One query a sequence
+    (``models.attn.one_token``) in bf16 on the card runs the
+    decode-attention kernel (:func:`~..kernels.decode_attention.
+    decode_attention`), which reads the cache in place up to the query's
+    position; everything else takes plain scores (:func:`_sdpa_naive`) or
+    the online-softmax path (:func:`_flash_attn`, whose ``q_offset`` is a
+    host int) as :func:`_flash` decides."""
+    one = q.shape[1] == 1
+    if one:
+        telemetry.count("models.attn.one_token")
+    if one and q.is_cuda and q.dtype == DECODE_ATTN_DTYPE:
+        fn = decode_attention
+    else:
+        fn = _flash_attn if _flash(q.shape[1], k.shape[1]) else _sdpa_naive
     return _blockwise(lambda q, k, v: fn(q, k, v, causal, q_offset), q, k, v)
 
 
