@@ -20,6 +20,7 @@ ALIASES.update({
 # port-only configs: found by name, never in ``ARCHS`` (the reference's ten)
 ALIASES["deepseek-v2-lite"] = "deepseek_v2_lite"
 ALIASES["nemotron-3-nano-30b-a3b"] = "nemotron_3_nano_30b_a3b"
+ALIASES["kimi-linear-48b-a3b"] = "kimi_linear_48b_a3b"
 
 
 def _module(arch: str):

@@ -187,11 +187,12 @@ class DeepSeekV2Config(ModelConfig):
 class NemotronHConfig(ModelConfig):
     """A ``nemotron_h`` hybrid (port only): one single-mixer pre-norm block
     a letter of ``block_pattern`` — ``M`` a grouped Mamba-2 mixer, ``E`` a
-    dropless MoE of non-gated relu² experts under a sigmoid router, ``*``
-    GQA attention without positions (``rope="none"``).  The Mamba-2 inner
-    width is ``ssm_heads × ssm_head_dim`` (not ``ssm_expand · d_model``),
-    head h reading B/C group ``h // (ssm_heads / ssm_groups)``.  The MoE
-    holds ``experts_held`` of the router's ``n_experts`` (0: all), from
+    dropless MoE of ``ffn_act`` experts (non-gated relu², or SwiGLU) under
+    a sigmoid router, ``*`` GQA attention without positions
+    (``rope="none"``).  The Mamba-2 inner width is ``ssm_heads ×
+    ssm_head_dim`` (not ``ssm_expand · d_model``), head h reading B/C
+    group ``h // (ssm_heads / ssm_groups)``.  The MoE holds
+    ``experts_held`` of the router's ``n_experts`` (0: all), from
     ``first_expert`` on: a chip's share under expert parallelism."""
     block_pattern: str = ""
     ssm_head_dim: int = 64
@@ -205,13 +206,23 @@ class NemotronHConfig(ModelConfig):
     first_expert: int = 0
 
     LETTERS = {"M": "ssm", "E": "moe", "*": "attn"}
+    # the kind of its recurrent blocks, whose states the decode caches
+    # hold (``ssm``); one a config, so no pattern mixes two
+    RECURRENT = "ssm"
+    # the expert activations the port computes: weight matrices an expert
+    ACTIVATIONS = {"relu2": 2, "swiglu": 3}
 
     def __post_init__(self):
-        for field, value, want in (("ffn_act", self.ffn_act, "relu2"),
-                                   ("router", self.router, "sigmoid")):
-            if value != want:
+        for field, value, want in (("ffn_act", self.ffn_act,
+                                    tuple(self.ACTIVATIONS)),
+                                   ("router", self.router, ("sigmoid",))):
+            if value not in want:
                 raise ValueError(f"{field} = {value!r}: the port computes "
-                                 f"{want!r} only")
+                                 f"{' and '.join(map(repr, want))} only")
+        unknown = set(self.block_pattern) - set(self.LETTERS)
+        if unknown:
+            raise ValueError(f"block_pattern letters {sorted(unknown)}: "
+                             f"this config has {sorted(self.LETTERS)}")
         if not 0 <= self.first_expert < self.first_expert + self.held \
                 <= self.n_experts:
             raise ValueError(f"experts {self.first_expert}.."
@@ -237,22 +248,72 @@ class NemotronHConfig(ModelConfig):
         assert len(self.block_pattern) == self.n_layers
         return tuple(self.LETTERS[c] for c in self.block_pattern)
 
+    def _block_params(self) -> dict[str, int]:
+        """Parameters of one block of each kind, its norm left out."""
+        d = self.d_model
+        di, nh = self.d_inner, self.n_ssm_heads
+        ch = di + 2 * self.ssm_groups * self.ssm_state
+        mats = self.ACTIVATIONS[self.ffn_act]
+        return {
+            "ssm": d * (di + ch + nh) + 4 * ch + ch * self.conv_bias
+            + 3 * nh + di + di * d,
+            "moe": (d + 1) * self.n_experts
+            + mats * d * (self.held * self.d_expert
+                          + self.shared_expert_width),
+            "attn": 2 * d * self.hd * (self.n_heads + self.n_kv_heads),
+        }
+
     def param_count(self) -> int:
         """Parameters held: embedding, untied head, final norm, and each
         block's norm and mixer (the MoE's router over all ``n_experts``,
         its choice bias, the ``held`` experts and the shared expert)."""
         d, v = self.d_model, self.vocab
-        di, nh = self.d_inner, self.n_ssm_heads
-        ch = di + 2 * self.ssm_groups * self.ssm_state
-        per = {
-            "ssm": d * (di + ch + nh) + 4 * ch + ch * self.conv_bias
-            + 3 * nh + di + di * d,
-            "moe": (d + 1) * self.n_experts
-            + 2 * d * (self.held * self.d_expert + self.shared_expert_width),
-            "attn": 2 * d * self.hd * (self.n_heads + self.n_kv_heads),
-        }
+        per = self._block_params()
         return (v * d * (1 if self.tie_embeddings else 2) + d
                 + sum(per[k] + d for k in self.pattern()))
+
+
+@dataclasses.dataclass(frozen=True)
+class KimiLinearConfig(NemotronHConfig):
+    """A ``kimi_linear`` hybrid (port only) as a stack of single-mixer
+    blocks, two a published layer: its mixer — ``K`` Kimi Delta Attention
+    (``kda_heads`` heads of ``kda_head_dim`` for keys and values, short
+    convolutions of 4 taps, a low-rank gate of ``kda_head_dim``), or ``L``
+    MLA without positions (``mla``, ``rope="none"``, the latent norm
+    ``kv_norm``) — then its FFN — ``D`` a dense SwiGLU of ``d_ff``, or
+    ``E`` the sigmoid-routed MoE of SwiGLU experts.  ``n_layers`` counts
+    the blocks."""
+    kda_heads: int = 0
+    kda_head_dim: int = 128
+    kv_norm = True                   # MLA's latent norm, always applied
+
+    LETTERS = {"K": "kda", "L": "attn", "D": "dense", "E": "moe"}
+    RECURRENT = "kda"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if "L" in self.block_pattern and not (self.mla and
+                                              self.rope == "none"):
+            raise ValueError("an L block is MLA without positions: mla "
+                             "and rope='none'")
+        if self.q_lora_rank:
+            raise ValueError("q_lora_rank: the port's MLA here has no q "
+                             "compression")
+
+    def _block_params(self) -> dict[str, int]:
+        d, h, k = self.d_model, self.kda_heads, self.kda_head_dim
+        w = h * k
+        nh, hd = self.n_heads, self.hd
+        r, rh = self.kv_lora_rank, self.rope_head_dim
+        return dict(
+            super()._block_params(),
+            # w_in [q|k|v|f_a|g_a|β], the conv, f_b and g_b, A_log,
+            # dt_bias, the output norm, w_out
+            kda=d * (3 * w + 2 * k + h) + 4 * 3 * w + 2 * k * w + h + w + k
+            + w * d,
+            attn=d * nh * (hd + rh) + d * (r + rh) + 2 * r * nh * hd
+            + nh * hd * d + r * self.kv_norm,
+            dense=3 * d * self.d_ff)
 
 
 @dataclasses.dataclass(frozen=True)

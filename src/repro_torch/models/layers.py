@@ -3,8 +3,9 @@ frequencies), GQA attention (one core, :func:`_sdpa`, plain or
 online-softmax (flash), over the step's keys or a cache), the int8 KV
 cache, MLA (DeepSeek-V2 latent attention, with its latent norm), the
 SwiGLU MLP with its binarized (PuM) variant, the top-k MoE
-(capacity-bound, or dropless with grouped expert products), and the
-Mamba2/SSD mixer.
+(capacity-bound, or dropless with grouped expert products; sigmoid-routed
+with relu² or SwiGLU experts), the Mamba2/SSD mixers and Kimi Delta
+Attention (a gated delta rule over a matrix state a head).
 
 Conventions (the reference's, :mod:`repro.models.layers`)
 ---------------------------------------------------------
@@ -236,6 +237,12 @@ def _rotate(x, cos, sin):
     x1, x2 = x[..., 0::2], x[..., 1::2]
     return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                        -1).reshape(x.shape)
+
+
+def _rotated(x, rope):
+    """``x`` rotated by ``rope = (cos, sin)`` (:func:`_rotate`), or as it
+    is where ``rope`` is None (no positions)."""
+    return x if rope is None else _rotate(x, *rope)
 
 
 def apply_rope(x, positions, theta: float = 1e4, mrope_sections=None):
@@ -536,7 +543,9 @@ class MLAttention(nn.Module):
     ``cfg.yarn_factor > 1`` the rope takes YaRN's frequencies
     (:func:`yarn_freqs`) and the scores YaRN's temperature,
     ``yarn_mscale(factor, mscale)²`` (mscale is mscale_all_dim, so the
-    cos/sin factor, their ratio, is 1)."""
+    cos/sin factor, their ratio, is 1).  With ``cfg.rope == "none"``
+    (Kimi Linear's NoPE MLA) the ``rope_head_dim`` parts of the query and
+    the shared key enter the scores, and the cache, unrotated."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -553,8 +562,11 @@ class MLAttention(nn.Module):
     def rope(self, positions, dtype: torch.dtype):
         """``(cos, sin)`` (..., S, 1, rope_head_dim/2) of ``positions`` in
         ``dtype``: the rotation of every layer's rope dims, which the
-        :class:`Transformer` makes once a forward."""
+        :class:`Transformer` makes once a forward; None without positions
+        (``rope="none"``)."""
         cfg = self.cfg
+        if cfg.rope == "none":
+            return None
         rh = cfg.rope_head_dim
         freqs = (yarn_freqs(cfg, rh, positions.device) if cfg.yarn_factor > 1
                  else rope_freqs(rh, cfg.rope_theta, positions.device))
@@ -569,9 +581,10 @@ class MLAttention(nn.Module):
         step scores against the latent directly (the absorbed decode); a
         step without a cache, or one past ``FLASH_THRESHOLD``² scores a
         head, attends over explicit keys and values (:meth:`_explicit`).
-        A cache ``pos`` that is a device tensor (one token, the step a
-        CUDA graph records) reads the whole cache instead, the keys past
-        it masked.  A one-token step with a cache is the span
+        A one-token step with a cache reads the whole cache, the keys past
+        its position masked, whether ``pos`` is an int (eager) or a device
+        tensor (the step a CUDA graph records): both sum over the same
+        length, so their logits are bit-equal.  Such a step is the span
         ``models.mla.decode`` and adds the latent-cache bytes it reads to
         ``models.mla.latent_bytes``; any other step is
         ``models.mla.prefill``."""
@@ -584,18 +597,18 @@ class MLAttention(nn.Module):
         cfg = self.cfg
         dt = _dt(cfg)
         r, hd = cfg.kv_lora_rank, cfg.hd
-        cos, sin = self.rope(positions, dt) if rope is None else rope
+        rope = self.rope(positions, dt) if rope is None else rope
         ckv = torch.einsum("bsd,dr->bsr", x, _cast(self.w_dkv, dt))
         c, k_rope = ckv[..., :r], ckv[..., r:]
         if cfg.kv_norm:
             c = self.kv_norm(c)
-        k_rope = _rotate(k_rope[:, :, None, :], cos, sin)
+        k_rope = _rotated(k_rope[:, :, None, :], rope)
         if cfg.q_lora_rank:
             q = torch.einsum("bsd,dr->bsr", x, _cast(self.w_dq, dt))
             q = torch.einsum("bsr,rhk->bshk", q, _cast(self.w_uq, dt))
         else:
             q = torch.einsum("bsd,dhk->bshk", x, _cast(self.w_q, dt))
-        q_nope, q_rope = q[..., :hd], _rotate(q[..., hd:], cos, sin)
+        q_nope, q_rope = q[..., :hd], _rotated(q[..., hd:], rope)
         b, s = x.shape[:2]
         p, t, new_cache = 0, s, None
         if cache is not None:
@@ -603,7 +616,7 @@ class MLAttention(nn.Module):
             cc = _write(cache["c"], c, p)
             cr = _write(cache["k_rope"], k_rope[:, :, 0, :], p)
             new_cache = {"c": cc, "k_rope": cr, "pos": p + s}
-            t = cc.shape[1] if torch.is_tensor(p) else p + s
+            t = cc.shape[1] if s == 1 else p + s
             c, k_rope = cc[:, :t].to(dt), cr[:, :t, None, :].to(dt)
         if cache is None or _long(s, t):
             y = self._explicit(q_nope, q_rope, c, k_rope, p)
@@ -617,9 +630,8 @@ class MLAttention(nn.Module):
             scores = (torch.einsum("bshr,btr->bhst", q_abs, c)
                       + torch.einsum("bshk,btk->bhst", q_rope, k_rope[:, :, 0])
                       ) * self.scale
-            if s > 1 or torch.is_tensor(p):
-                scores = torch.where(_causal(s, p, x.device, t),
-                                     scores.float(), -1e30)
+            scores = torch.where(_causal(s, p, x.device, t),
+                                 scores.float(), -1e30)
             w = torch.softmax(scores.float(), -1).to(dt)
             y_lat = torch.einsum("bhst,btr->bshr", w, c)
             y = torch.einsum("bshr,rhk->bshk", y_lat, _cast(self.w_uv, dt))
@@ -880,7 +892,8 @@ class MoE(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# nemotron_h's MoE: sigmoid router with a choice bias, relu² experts
+# nemotron_h's MoE: sigmoid router with a choice bias, relu² or SwiGLU
+# experts
 # ---------------------------------------------------------------------------
 
 def relu2_mlp_defs(cfg: ModelConfig, d_ff: int):
@@ -908,21 +921,28 @@ def sigmoid_moe_defs(cfg):
     """A :class:`SigmoidMoE`'s parameters: the router over all
     ``n_experts`` and its ``choice_bias`` (the published
     ``e_score_correction_bias``), the ``held`` experts' ``w_up``/``w_down``
-    and the shared expert of ``shared_expert_width``."""
+    (and ``w_gate``, SwiGLU) and the shared expert of
+    ``shared_expert_width``."""
     d, e, h, f = cfg.d_model, cfg.n_experts, cfg.held, cfg.d_expert
-    return {"router": P((d, e), ("embed", None)),
+    defs = {"router": P((d, e), ("embed", None)),
             "choice_bias": P((e,), (None,), init="zeros"),
             "w_up": P((h, d, f), ("experts", "embed", None)),
-            "w_down": P((h, f, d), ("experts", None, "embed")),
-            "shared": relu2_mlp_defs(cfg, cfg.shared_expert_width)}
+            "w_down": P((h, f, d), ("experts", None, "embed"))}
+    if cfg.ffn_act == "swiglu":
+        defs["w_gate"] = P((h, d, f), ("experts", "embed", None))
+        defs["shared"] = mlp_defs(cfg, cfg.shared_expert_width)
+    else:
+        defs["shared"] = relu2_mlp_defs(cfg, cfg.shared_expert_width)
+    return defs
 
 
 class SigmoidMoE(MoE):
     """``nemotron_h``'s MoE (DeepSeek-V3's router), dropless: scores
     ``sigmoid(h · router)`` in float32; the top-k of ``scores +
     choice_bias`` chosen; their gates the chosen scores, renormalised,
-    times ``routed_scaling``; relu² experts and one relu² shared expert
-    added ungated.  It holds experts ``first_expert`` ..
+    times ``routed_scaling``; experts of ``cfg.ffn_act`` (relu², or
+    SwiGLU as :meth:`MoE._experts` computes them) and one shared expert of
+    the same kind added ungated.  It holds experts ``first_expert`` ..
     ``first_expert + held − 1`` and routes over all ``n_experts``: the
     pairs of the others contribute nothing (:meth:`MoE._dropless`)."""
 
@@ -933,7 +953,8 @@ class SigmoidMoE(MoE):
         for name, d in sigmoid_moe_defs(cfg).items():
             if name != "shared":
                 self.register_parameter(name, _param(d, device, _pdt(cfg)))
-        self.shared = Relu2MLP(cfg, device, cfg.shared_expert_width)
+        self.shared = (MLP if cfg.ffn_act == "swiglu" else Relu2MLP)(
+            cfg, device, cfg.shared_expert_width)
 
     def route(self, tokens):
         """Scores (G, S, E), gates and experts (G, S, k) of ``tokens``."""
@@ -949,6 +970,8 @@ class SigmoidMoE(MoE):
         return self._dropless(x)
 
     def _experts(self, xs, ends):
+        if self.cfg.ffn_act == "swiglu":
+            return super()._experts(xs, ends)
         dt = _dt(self.cfg)
         h = torch.relu(torch._grouped_mm(xs, _cast(self.w_up, dt),
                                          offs=ends))
@@ -1127,6 +1150,18 @@ def mamba2_cache_shape(cfg: ModelConfig, batch: int):
                       cfg.ssm_state)}
 
 
+def _short_conv(x, cache, w):
+    """The causal depthwise convolution of 4 taps ``w`` (4, ch) over ``x``
+    (B,S,ch), after the window of the cache's last 3 inputs (``cache
+    ["conv"]``; zeros without a cache).  Returns ``(conv, xpad)``: xpad is
+    ``x`` after the window, whose last 3 rows are the next window."""
+    window = (x.new_zeros(x.shape[0], 3, x.shape[-1]) if cache is None
+              else cache["conv"].to(x.dtype))
+    xpad = torch.cat([window, x], 1)
+    s = x.shape[1]
+    return sum(xpad[:, i:i + s] * w[i] for i in range(4)), xpad
+
+
 def _segsum(x):
     """``out[..., i, j] = Σ_{j < r ≤ i} x[..., r]`` for j ≤ i, −inf above
     the diagonal, summed without differences of long cumulative sums."""
@@ -1239,11 +1274,7 @@ class Mamba2Mixer(nn.Module):
         z, xbc, dt_raw = torch.einsum(
             "bsd,de->bse", x, _cast(self.w_in, dt_)).split(
                 [di, di + 2 * gn, nh], -1)
-        window = (xbc.new_zeros(b_, 3, xbc.shape[-1]) if cache is None
-                  else cache["conv"].to(dt_))
-        xpad = torch.cat([window, xbc], 1)
-        w = _cast(self.conv_w, dt_)
-        conv = sum(xpad[:, i:i + s] * w[i] for i in range(4))
+        conv, xpad = _short_conv(xbc, cache, _cast(self.conv_w, dt_))
         if cfg.conv_bias:
             conv = conv + _cast(self.conv_b, dt_)
         xs, bm, cm = F.silu(conv).split([di, gn, gn], -1)
@@ -1294,3 +1325,195 @@ class Mamba2Mixer(nn.Module):
                 cache["state"][one].copy_(h)
             ys.append(y)
         return torch.cat(ys)
+
+
+# ---------------------------------------------------------------------------
+# Kimi Delta Attention (Kimi Linear): a gated delta rule over a matrix
+# state per head, with a decay per key channel
+# ---------------------------------------------------------------------------
+
+KDA_CHUNK = 16         # positions a chunk of the chunked delta rule
+KDA_GROUP = 4096       # positions (of all sequences) whose chunks are made
+                       # ready at once, which bounds the (C, C, K) decays
+L2_EPS = 1e-6          # the q/k L2 norm's epsilon (fla's ``l2norm``)
+
+
+def kda_defs(cfg: ModelConfig):
+    """The input projection ``[q | k | v | f_a | g_a | β]`` (widths H·K
+    thrice, the gate rank K twice, H), the depthwise conv of 4 taps over
+    q, k and v's channels, the gates' up-projections ``f_b`` and ``g_b``
+    (K → H·K), ``A_log`` a head, ``dt_bias`` a key channel, the output
+    norm's scale (K) and the output projection."""
+    d, h, k = cfg.d_model, cfg.kda_heads, cfg.kda_head_dim
+    w = h * k
+    return {
+        "w_in": P((d, 3 * w + 2 * k + h), ("embed", "inner")),
+        "conv_w": P((4, 3 * w), (None, "inner"), scale=0.5),
+        "f_b": P((k, w), (None, "inner")),
+        "g_b": P((k, w), (None, "inner")),
+        "a_log": P((h,), (None,), init="ones"),
+        "dt_bias": P((w,), ("inner",), init="zeros"),
+        "norm": rmsnorm_defs(k),
+        "w_out": P((w, d), ("inner", "embed")),
+    }
+
+
+def kda_cache_shape(cfg: ModelConfig, batch: int):
+    """One layer's conv window (the last 3 q/k/v inputs) and state."""
+    h, k = cfg.kda_heads, cfg.kda_head_dim
+    return {"conv": (batch, 3, 3 * h * k), "state": (batch, h, k, k)}
+
+
+def _l2norm(x):
+    return x * torch.rsqrt(x.square().sum(-1, keepdim=True) + L2_EPS)
+
+
+def _kda_step(state, q, k, v, g, beta):
+    """One token a sequence and head: ``S ← Diag(e^g) S``, ``u = β (v −
+    Sᵀk)``, ``S ← S + k uᵀ``, ``o = Sᵀq``.  state (B,H,K,V) float32,
+    written in place; q, k, g (B,H,K); v (B,H,V); beta (B,H).  Returns o
+    (B,H,V)."""
+    state.mul_(torch.exp(g)[..., None])
+    u = beta[..., None] * (v - torch.einsum("bhkv,bhk->bhv", state, k))
+    state.add_(k[..., :, None] * u[..., None, :])
+    return torch.einsum("bhkv,bhk->bhv", state, q)
+
+
+def _kda_chunked(q, k, v, g, beta, s0=None, group: int = KDA_GROUP):
+    """The gated delta rule of whole sequences in chunks of ``KDA_CHUNK``
+    positions, from the state ``s0`` (B,H,K,V) (zeros if None): the
+    outputs :func:`_kda_step` gives token by token and the state after the
+    last position.  q, k (B,T,H,K) float32, k L2-normed (q also scaled);
+    v (B,T,H,V); g (B,T,H,K) log decays ≤ 0; beta (B,T,H).
+
+    In a chunk entered with state S₀, Γ_i the inclusive cumulative sum of
+    g from the chunk's start: its updates solve ``(I + tril₋₁(diag β ·
+    A)) U = diag β · (V − (K ⊙ e^Γ) S₀)``, ``A_ij = Σ_c k_ic k_jc
+    e^{Γ_ic − Γ_jc}``; its outputs are ``o_i = S₀ᵀ(q_i ⊙ e^{Γ_i}) +
+    Σ_{j ≤ i} u_j Σ_c q_ic k_jc e^{Γ_ic − Γ_jc}``; the state leaving it is
+    ``Diag(e^{Γ_C}) S₀ + Σ_j (k_j ⊙ e^{Γ_C − Γ_j}) u_jᵀ``.  Every exponent
+    is a difference Γ_i − Γ_j with j ≤ i (Γ_0 = 0), and the pairs above the
+    diagonal are masked to −inf before ``exp``, so none is positive.  The
+    solve leaves S₀ out: ``U = W_v − W_k S₀`` with ``W = (I + …)⁻¹ diag β
+    [V | K ⊙ e^Γ]``, so the chunks' W, decayed q·k products and decays are
+    made ``group`` positions (of all the sequences) at a time, no (C, C,
+    K) tensor of more, and only the state passes from chunk to chunk, by
+    three batched products.  A ragged last chunk is padded with q = k = v
+    = 0, β = 0 and g = 0, which update and decay nothing.  Returns ``(o
+    (B,T,H,V), state (B,H,K,V))``, float32."""
+    b, t, h, dk = k.shape
+    dv = v.shape[-1]
+    chunk = KDA_CHUNK
+    pad = -t % chunk
+    if pad:
+        q, k, v, g = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v, g))
+        beta = F.pad(beta, (0, 0, 0, pad))
+    n = (t + pad) // chunk
+    state = (q.new_zeros(b * h, dk, dv) if s0 is None
+             else s0.reshape(b * h, dk, dv).clone())
+    out = q.new_empty(n, b * h, chunk, dv)
+    causal = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                   device=q.device))
+    per = max(1, group // (b * chunk))
+    for c0 in range(0, n, per):
+        c1 = min(n, c0 + per)
+        span = slice(c0 * chunk, c1 * chunk)
+
+        def part(x):        # (G, B·H, C, ·): the group's chunks, batched
+            x = x[:, span].unflatten(1, (c1 - c0, chunk))
+            return x.movedim(1, 0).transpose(2, 3).flatten(1, 2)
+        qg, kg, vg, gg = (part(x) for x in (q, k, v, g))
+        bg = part(beta[..., None])
+        cum = gg.cumsum(2)                                      # Γ
+        # [i, j, c] = e^{Γ_ic − Γ_jc} k_jc for j ≤ i, else 0
+        kd = ((cum[..., :, None, :] - cum[..., None, :, :])
+              .masked_fill_(~causal[..., None], -math.inf).exp_()
+              .mul_(kg[..., None, :, :]))
+        a = torch.einsum("...ijc,...ic->...ij", kd, kg)
+        qk = torch.einsum("...ijc,...ic->...ij", kd, qg)
+        del kd
+        eg = cum.exp()
+        wy = torch.linalg.solve_triangular(
+            a.mul_(bg), torch.cat([vg, kg * eg], -1).mul_(bg),
+            upper=False, unitriangular=True)
+        wv, wk = (x.contiguous() for x in wy.split([dv, dk], -1))
+        qt = qg * eg
+        last = cum[..., -1:, :]
+        kh = (kg * (last - cum).exp_()).mT.contiguous()   # (G, B·H, K, C)
+        dc = last.exp().mT                                  # (G, B·H, K, 1)
+        for i in range(c1 - c0):
+            u = torch.baddbmm(wv[i], wk[i], state, alpha=-1)
+            torch.baddbmm(torch.bmm(qk[i], u), qt[i], state,
+                          out=out[c0 + i])
+            state = torch.baddbmm(state * dc[i], kh[i], u)
+    o = out.unflatten(1, (b, h)).permute(1, 0, 3, 2, 4).reshape(
+        b, n * chunk, h, dv)
+    return o[:, :t], state.reshape(b, h, dk, dv)
+
+
+class KDAMixer(nn.Module):
+    """Kimi Delta Attention (the reference has none).  ``[q | k | v | f_a
+    | g_a | β] = x · w_in``; q, k and v each ``silu(causal depthwise
+    conv4)`` (no bias); per head ``q̂ = q / ‖q‖ · K^-½``, ``k̂ = k /
+    ‖k‖``; the log decay ``g = −exp(A_log) · softplus(f_a · f_b +
+    dt_bias)`` a key channel; ``β = sigmoid(β)``; the delta rule
+    (:func:`_kda_step`) over a K × V state a head; then ``w_out`` of
+    ``RMSNorm_V(o) · scale · sigmoid(g_a · g_b)``.
+
+    With a cache (conv window (B,3,3·H·K), float32 state (B,H,K,V)) both
+    are written in place: a one-token step runs the recurrence
+    (``models.kda.step``); any other forward the chunked rule
+    (:func:`_kda_chunked`, ``models.kda.prefill``) from the cached state
+    and window, leaving the state and window that token-by-token decoding
+    would leave.  A cached forward adds the bytes of state and window it
+    reads and writes to ``models.kda.state_bytes``."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        for name, d in kda_defs(cfg).items():
+            if name != "norm":
+                self.register_parameter(name, _param(d, device, _pdt(cfg)))
+        self.norm = RMSNorm(cfg.kda_head_dim, cfg.norm_eps, device,
+                            _pdt(cfg))
+
+    def forward(self, x, cache=None):
+        """Returns ``(y, None)``; ``cache`` = dict(conv, state), one
+        layer's, updated in place."""
+        cfg = self.cfg
+        dt_ = _dt(cfg)
+        b_, s, _ = x.shape
+        h, hk = cfg.kda_heads, cfg.kda_head_dim
+        w = h * hk
+        qkv, fa, ga, beta = torch.einsum(
+            "bsd,de->bse", x, _cast(self.w_in, dt_)).split(
+                [3 * w, hk, hk, h], -1)
+        conv, xpad = _short_conv(qkv, cache, _cast(self.conv_w, dt_))
+        q, k, v = F.silu(conv).float().unflatten(-1, (3, h, hk)).unbind(2)
+        q, k = _l2norm(q) * hk ** -0.5, _l2norm(k)
+        g = torch.einsum("bsr,re->bse", fa, _cast(self.f_b, dt_)).float()
+        g = (_softplus(g + self.dt_bias.float()).unflatten(-1, (h, hk))
+             * -torch.exp(self.a_log.float())[:, None])
+        beta = torch.sigmoid(beta.float())
+        if cache is not None and s == 1:
+            with telemetry.span("models.kda.step"):
+                o = _kda_step(cache["state"], q[:, 0], k[:, 0], v[:, 0],
+                              g[:, 0], beta[:, 0])[:, None]
+        else:
+            with telemetry.span("models.kda.prefill"):
+                o, state = _kda_chunked(
+                    q, k, v, g, beta,
+                    None if cache is None else cache["state"])
+                if cache is not None:
+                    cache["state"].copy_(state)
+        gate = torch.einsum("bsr,re->bse", ga, _cast(self.g_b, dt_))
+        o = (o * torch.rsqrt(o.square().mean(-1, keepdim=True) + cfg.norm_eps)
+             * torch.sigmoid(gate.float().unflatten(-1, (h, hk))))
+        o = o.to(dt_) * _cast(self.norm.scale, dt_)
+        out = torch.einsum("bse,ed->bsd", o.flatten(2), _cast(self.w_out, dt_))
+        if cache is not None:
+            cache["conv"].copy_(xpad[:, -3:])
+            telemetry.count("models.kda.state_bytes", 2 * sum(
+                cache[n].numel() * cache[n].element_size()
+                for n in ("conv", "state")))
+        return out, None

@@ -1,7 +1,8 @@
 """Model composition: decoder LMs (dense, vlm), MoE LMs (with MLA for
 DeepSeek-V2), enc-dec (whisper), hybrid (zamba2), pure-SSM (mamba2) and
-``nemotron_h`` hybrid MoE (Mamba-2, MoE and attention blocks in one
-stack) stacks, with per-family decode caches.
+hybrid MoE stacks (``nemotron_h``: Mamba-2, MoE and attention blocks;
+``kimi_linear``: Kimi Delta Attention, NoPE MLA, dense and MoE blocks),
+with per-family decode caches.
 
 Entry points (the reference's, :mod:`repro.models.transformer`)
 ----------------------------------------------------------------
@@ -9,8 +10,8 @@ Entry points (the reference's, :mod:`repro.models.transformer`)
                                           ``ssm_blocks``, ``enc_blocks``;
                                           ``dense_blocks`` for leading
                                           dense layers of a MoE model;
-                                          ``attn_blocks``/``moe_blocks``
-                                          of a hybrid MoE)
+                                          a hybrid MoE's blocks of each
+                                          letter)
 ``Transformer(cfg, device)``              the module; ``load_params(tree)``
                                           fills it from such a tree,
                                           ``draw_params(generator)`` draws
@@ -53,10 +54,11 @@ from torch.utils.checkpoint import checkpoint
 from .. import telemetry
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .layers import (MLP, Attention, Mamba2Mixer, MLAttention, MoE,
-                     ParamDef, PumMLP, RMSNorm, SigmoidMoE, SSMMixer, _cast,
-                     _check_room, _dt, _flash, _kept_copy, _param, _pdt,
-                     _sdpa, apply_rope, attention_defs, mamba2_cache_shape,
+from .layers import (MLP, Attention, KDAMixer, Mamba2Mixer, MLAttention,
+                     MoE, ParamDef, PumMLP, RMSNorm, SigmoidMoE, SSMMixer,
+                     _cast, _check_room, _dt, _flash, _kept_copy, _param,
+                     _pdt, _sdpa, apply_rope, attention_defs,
+                     kda_cache_shape, kda_defs, mamba2_cache_shape,
                      mamba2_defs, mla_defs, mlp_defs, moe_defs, rmsnorm_defs,
                      sigmoid_moe_defs, ssm_cache_shape, ssm_defs)
 from .params import stack_defs, tree_leaves
@@ -71,11 +73,28 @@ GRAPH_FAMILIES = ATTN_FAMILIES + ("hybrid_moe",)
 # ``blocks.<i>`` in the module before the MoE layers; and a hybrid MoE's
 # blocks of each kind)
 STACKED = ("blocks", "ssm_blocks", "enc_blocks", "dense_blocks",
-           "attn_blocks", "moe_blocks")
+           "attn_blocks", "moe_blocks", "kda_blocks", "mla_blocks",
+           "mlp_blocks")
+
+
+class DenseFFN(MLP):
+    """A hybrid MoE's dense block: the SwiGLU of ``d_ff``, ``(y, None)``
+    as a mixer returns."""
+
+    def forward(self, x):
+        return super().forward(x), None
+
+
 # a hybrid MoE's letters: each one's stacked subtree, mixer and its defs
 LETTERS = {"M": ("ssm_blocks", Mamba2Mixer, mamba2_defs),
            "E": ("moe_blocks", SigmoidMoE, sigmoid_moe_defs),
-           "*": ("attn_blocks", Attention, attention_defs)}
+           "*": ("attn_blocks", Attention, attention_defs),
+           "K": ("kda_blocks", KDAMixer, kda_defs),
+           "L": ("mla_blocks", MLAttention, mla_defs),
+           "D": ("mlp_blocks", DenseFFN, mlp_defs)}
+# a hybrid MoE's recurrent kind (its config's ``RECURRENT``): one layer's
+# conv window and state
+RECURRENT_CACHE = {"ssm": mamba2_cache_shape, "kda": kda_cache_shape}
 SHARED_EVERY = 6       # hybrid: the shared attention block after every 6th
 
 
@@ -228,11 +247,17 @@ def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, moe=False, mla=False, pum_mlp=False)
 
 
+def _letters(cfg: ModelConfig):
+    """The hybrid MoE letters ``cfg.block_pattern`` uses, with their
+    subtree, mixer and defs."""
+    return [(c, v) for c, v in LETTERS.items() if c in cfg.block_pattern]
+
+
 def model_defs(cfg: ModelConfig):
     d, v = cfg.d_model, cfg.vocab
     defs: dict = {"embed": P((v, d), ("vocab", "embed"), scale=0.01)}
     if cfg.family == "hybrid_moe":
-        for letter, (name, _, mixer_defs) in LETTERS.items():
+        for letter, (name, _, mixer_defs) in _letters(cfg):
             defs[name] = stack_defs(
                 {"ln": rmsnorm_defs(d), "mixer": mixer_defs(cfg)},
                 cfg.block_pattern.count(letter))
@@ -286,7 +311,8 @@ class Transformer(nn.Module):
     hybrid's weight-tied ``shared_attn`` is one block, called after every
     sixth SSM layer; a hybrid MoE's blocks of each letter are numbered
     apart (``ssm_blocks.<i>``, ``moe_blocks.<i>``, ``attn_blocks.<i>``,
-    each ``ln`` and ``mixer``) and run in ``cfg.block_pattern``'s order;
+    ``kda_blocks.<i>``, ``mla_blocks.<i>``, ``mlp_blocks.<i>``, each ``ln``
+    and ``mixer``) and run in ``cfg.block_pattern``'s order;
     a MoE model's ``cfg.first_k_dense`` leading blocks have the dense
     SwiGLU of ``d_ff`` (``blocks.0.ffn.w_gate``, ...).
     Parameters are held in ``cfg.param_dtype``.  Built uninitialised on
@@ -312,7 +338,7 @@ class Transformer(nn.Module):
         pdt = _pdt(cfg)
         self.embed = _param(defs["embed"], dev, pdt)
         if cfg.family == "hybrid_moe":
-            for letter, (name, mixer, _) in LETTERS.items():
+            for letter, (name, mixer, _) in _letters(cfg):
                 setattr(self, name, nn.ModuleList(
                     MixerBlock(cfg, mixer(cfg, dev), dev)
                     for _ in range(cfg.block_pattern.count(letter))))
@@ -427,7 +453,7 @@ class Transformer(nn.Module):
                 or cfg.kv_cache_dtype == "int8" or len(batch) != 1):
             return False
         tokens = batch["tokens"]
-        b, t = caches["layers"]["c" if cfg.mla else "k"].shape[1:3]
+        b, t = _cache_size(cfg, caches)
         if (tuple(tokens.shape) != (b, 1) or not _cuda(tokens)
                 or (not cfg.mla and _flash(1, t))):
             return False
@@ -441,8 +467,8 @@ class Transformer(nn.Module):
         here if the model holds none (that step runs eagerly, its output
         returned); the positions advance on the host, which checks the
         room first."""
-        layers, pos = caches["layers"], int(caches["pos"])
-        _check_room(pos, 1, layers["c" if self.cfg.mla else "k"].shape[2])
+        pos = int(caches["pos"])
+        _check_room(pos, 1, _cache_size(self.cfg, caches)[1])
         if self._graph is None:
             self._graph, (logits, aux) = DecodeGraph.capture(
                 self._forward, caches, tokens, pos, self.parameters())
@@ -574,28 +600,33 @@ class Transformer(nn.Module):
 
     def _hybrid_moe_stack(self, x, positions, caches, start,
                           remat: bool = False):
-        """``nemotron_h``: the blocks in ``cfg.block_pattern``'s order, the
-        i-th of a letter from its stack; with caches, the i-th ``*`` block
-        attends over KV cache i (``layers``) at ``start`` and the i-th
-        ``M`` block keeps SSM cache i (``ssm``).  Returns ``(x, aux)``."""
+        """A hybrid MoE: the blocks in ``cfg.block_pattern``'s order, the
+        i-th of a letter from its stack; with caches, the i-th ``*`` or
+        ``L`` block attends over KV or latent cache i (``layers``) at
+        ``start``, and the i-th block of the config's ``RECURRENT`` kind
+        (``M`` Mamba-2 or ``K`` KDA) keeps recurrent cache i (``ssm``).
+        Returns ``(x, aux)``."""
+        cfg = self.cfg
         kv, ssm = (None, None) if caches is None else (caches["layers"],
                                                          caches["ssm"])
         seen = dict.fromkeys(LETTERS, 0)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for letter in self.cfg.block_pattern:
+        for letter in cfg.block_pattern:
             i = seen[letter]
             seen[letter] += 1
             block = getattr(self, LETTERS[letter][0])[i]
-            if letter == "M":
+            kind = cfg.LETTERS[letter]
+            if kind == cfg.RECURRENT:
                 x, _ = _call(remat, block, x, _layer_cache(ssm, i, start))
-            elif letter == "*":
+            elif kind == "attn":
                 with telemetry.span("models.attn"):
                     x, _ = _call(remat, block, x, positions,
                                  _layer_cache(kv, i, start))
             else:
                 with telemetry.span("models.ffn"):
                     x, a = _call(remat, block, x)
-                aux = aux + a
+                if a is not None:
+                    aux = aux + a
         return x, aux
 
     def _encode(self, batch, caches):
@@ -615,6 +646,14 @@ class Transformer(nn.Module):
 
 def _cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
+
+
+def _cache_size(cfg: ModelConfig, caches) -> tuple[int, int]:
+    """(sequences, positions) of an attention model's or a hybrid MoE's
+    decode caches, from its attention layers' cache: MLA's latent ``c``,
+    else the KV cache ``k``."""
+    b, t = caches["layers"]["c" if cfg.mla else "k"].shape[1:3]
+    return b, t
 
 
 def _uncounted(fn):
@@ -649,8 +688,8 @@ class DecodeGraph:
     registry the counters the recorded step added (``counts``), and
     returns copies of the outputs, so a later replay overwrites nothing a
     caller holds.  It writes the cache tensors of ``layers`` (KV or
-    latent) and, for a hybrid MoE, ``ssm`` (state and conv window, in
-    place)."""
+    latent) and, for a hybrid MoE, ``ssm`` (Mamba-2's or KDA's states and
+    conv windows, in place)."""
 
     GROUPS = ("layers", "ssm")
     ssm: dict = {}           # the SSM caches it writes (none: attention)
@@ -810,23 +849,27 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
     * ssm: ``layers`` of ``conv`` and a float32 ``state``;
     * hybrid: ``ssm`` (as ssm's ``layers``) and ``shared_attn`` ``k``/``v``
       per invocation of the shared block (no ``pos`` of their own);
-    * hybrid MoE: ``layers`` of ``k``/``v`` for its attention blocks and
-      ``ssm`` of ``conv`` and a float32 ``state`` for its Mamba-2 blocks."""
+    * hybrid MoE: ``layers`` of ``k``/``v`` (or MLA's ``c`` and
+      ``k_rope``) for its attention blocks, and ``ssm`` of ``conv`` and a
+      float32 ``state`` for its Mamba-2 or KDA blocks."""
     out: dict = {"pos": ((), torch.int32)}
     if cfg.family == "hybrid_moe":
-        n, m = n_attn_layers(cfg), n_ssm_layers(cfg)
-        kv = ((n, batch, max_seq, cfg.n_kv_heads, cfg.hd), dtype)
-        out["layers"] = {"k": kv, "v": kv, "pos": ((n,), torch.int32)}
-        shapes = mamba2_cache_shape(cfg, batch)
+        n = n_attn_layers(cfg)
+        if cfg.mla:
+            out["layers"] = _mla_cache_shapes(cfg, n, batch, max_seq, dtype)
+        else:
+            kv = ((n, batch, max_seq, cfg.n_kv_heads, cfg.hd), dtype)
+            out["layers"] = {"k": kv, "v": kv}
+        out["layers"]["pos"] = ((n,), torch.int32)
+        m = cfg.pattern().count(cfg.RECURRENT)
+        shapes = RECURRENT_CACHE[cfg.RECURRENT](cfg, batch)
         out["ssm"] = {"conv": ((m,) + shapes["conv"], dtype),
                       "state": ((m,) + shapes["state"], torch.float32),
                       "pos": ((m,), torch.int32)}
     elif cfg.family in ATTN_FAMILIES:
         n = n_attn_layers(cfg)
         if cfg.mla:
-            layers = {"c": ((n, batch, max_seq, cfg.kv_lora_rank), dtype),
-                      "k_rope": ((n, batch, max_seq, cfg.rope_head_dim),
-                                 dtype)}
+            layers = _mla_cache_shapes(cfg, n, batch, max_seq, dtype)
         else:
             int8 = cfg.kv_cache_dtype == "int8"
             kv = ((n, batch, max_seq, cfg.n_kv_heads, cfg.hd),
@@ -862,6 +905,12 @@ def init_cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
     else:
         raise ValueError(cfg.family)
     return out
+
+
+def _mla_cache_shapes(cfg: ModelConfig, n: int, batch: int, max_seq: int,
+                      dtype: torch.dtype) -> dict:
+    return {"c": ((n, batch, max_seq, cfg.kv_lora_rank), dtype),
+            "k_rope": ((n, batch, max_seq, cfg.rope_head_dim), dtype)}
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,

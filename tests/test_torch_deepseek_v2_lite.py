@@ -194,8 +194,11 @@ def test_blocked_cached_prefill_equals_the_unblocked(monkeypatch):
 def test_rope_is_made_once_a_forward_and_decode_reads_written_positions(
         monkeypatch):
     """The :class:`Transformer` makes MLA's cos/sin once for all its
-    layers; a one-token step scores only the positions written so far
-    and counts their latent and rope-key bytes, not the whole cache's."""
+    layers; a one-token step's output depends on the positions written so
+    far alone: it scores the whole cache, as the step a decode graph
+    records does, the positions past its own masked, so garbage there
+    changes no bit; it counts the latent and rope-key bytes it reads, the
+    whole cache's."""
     from repro_torch import telemetry
     cfg = reduced()
     model, _ = model_and_weights(cfg)
@@ -210,12 +213,18 @@ def test_rope_is_made_once_a_forward_and_decode_reads_written_positions(
     caches = init_caches(cfg, 2, 40, dtype=torch.float32, device="cpu")
     with torch.no_grad():
         _, _, caches = model({"tokens": tok[:, :10]}, caches)
+        dirty = {**caches, "layers": {k: v.clone() for k, v in
+                                      caches["layers"].items()}}
+        for k in ("c", "k_rope"):
+            dirty["layers"][k][:, :, 11:].normal_(0, 1e3)
         telemetry.reset()
-        _, _, caches = model({"tokens": tok[:, 10:11]}, caches)
+        want, _, caches = model({"tokens": tok[:, 10:11]}, caches)
         got = telemetry.snapshot()["counters"]["models.mla.latent_bytes"]
-    assert made == [10, 1]
-    # 3 layers × batch 2 × 11 positions × (latent 32 + rope 8) × 4 bytes
-    assert got == 3 * 2 * 11 * (32 + 8) * 4
+        dirty_logits, _, _ = model({"tokens": tok[:, 10:11]}, dirty)
+    assert made == [10, 1, 1]
+    assert torch.equal(dirty_logits, want)
+    # 3 layers × batch 2 × 40 positions × (latent 32 + rope 8) × 4 bytes
+    assert got == 3 * 2 * 40 * (32 + 8) * 4
 
 
 def test_flash_skips_only_blocks_wholly_masked():
